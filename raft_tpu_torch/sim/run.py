@@ -1,0 +1,124 @@
+"""Multi-tick runner and metrics for the plain PyTorch tick (the JAX
+package's `sim/run.py`, with its `lax.scan` as a Python loop).
+
+Metrics:
+- `committed[G]`: running max over ticks of the per-group max commit
+  index — entries durably committed by the group ("consensus rounds").
+- election latency: per group, the length of each leaderless streak
+  (consecutive ticks with no alive leader), recorded when a leader
+  (re)appears, in a bounded histogram `[0..H)` whose bucket H-1 absorbs
+  longer streaks; `max_latency` keeps the exact longest streak so
+  censoring is detectable (`latency_censored`).
+- `safety[G]`: running AND of the per-tick safety predicate
+  (`check.tick_safety`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.config import RaftConfig
+from raft_tpu_torch.core.node import LEADER
+from raft_tpu_torch.sim import check
+from raft_tpu_torch.sim.state import I32, State
+from raft_tpu_torch.sim.step import tick
+
+HIST_SIZE = 512
+
+
+class Metrics(NamedTuple):
+    committed: torch.Tensor    # i32[G] — running max of per-group max commit
+    leaderless: torch.Tensor   # i32[G] — current leaderless streak, in ticks
+    elections: torch.Tensor    # i32 — completed leader-acquisition events
+    hist: torch.Tensor         # i32[H] — election-latency histogram
+    max_latency: torch.Tensor  # i32 — exact longest completed streak
+    safety: torch.Tensor       # i32[G] — per-tick safety AND (1 = never bad)
+    # Client lanes: absent (None) while clients are not ported.
+    client_acked: torch.Tensor | None = None
+    client_retries: torch.Tensor | None = None
+    client_hist: torch.Tensor | None = None
+    client_max_lat: torch.Tensor | None = None
+
+
+def metrics_init(n_groups: int, hist_size: int = HIST_SIZE,
+                 device="cuda") -> Metrics:
+    device = torch.device(device)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=I32, device=device)
+
+    return Metrics(committed=z(n_groups), leaderless=z(n_groups),
+                   elections=z(), hist=z(hist_size), max_latency=z(),
+                   safety=torch.ones(n_groups, dtype=I32, device=device))
+
+
+def metrics_update(m: Metrics, st: State, log_cap: int) -> Metrics:
+    """Fold one post-tick state into the metrics."""
+    nodes = st.nodes
+    committed = torch.maximum(m.committed, nodes.commit.amax(dim=1))
+    has_leader = ((nodes.role == LEADER) & st.alive_prev).any(dim=1)
+    done = has_leader & (m.leaderless > 0)
+    bucket = torch.clamp(m.leaderless, max=m.hist.shape[0] - 1).long()
+    hist = m.hist.clone()
+    hist.index_add_(0, bucket, done.to(I32))
+    zero = torch.zeros_like(m.leaderless)
+    return m._replace(
+        committed=committed,
+        leaderless=torch.where(has_leader, zero, m.leaderless + 1),
+        elections=m.elections + done.to(I32).sum(dtype=I32),
+        hist=hist,
+        max_latency=torch.maximum(
+            m.max_latency, torch.where(done, m.leaderless, zero).amax()),
+        safety=torch.where(check.tick_safety(st, log_cap), m.safety,
+                           torch.zeros_like(m.safety)),
+    )
+
+
+def run(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0,
+        metrics: Metrics | None = None):
+    """Run `n_ticks` global ticks starting at absolute tick `t0`, on the
+    device the state lies on. Returns (state, metrics); call again with
+    the returned pair and `t0 + n_ticks` to continue the same universe."""
+    if metrics is None:
+        metrics = metrics_init(st.alive_prev.shape[0],
+                               device=st.alive_prev.device)
+    for t in range(int(t0), int(t0) + int(n_ticks)):
+        st = tick(cfg, st, t)
+        metrics = metrics_update(metrics, st, cfg.log_cap)
+    return st, metrics
+
+
+def total_rounds(metrics: Metrics) -> int:
+    """Total consensus rounds = entries durably committed across groups,
+    summed in int64."""
+    return int(metrics.committed.to(torch.int64).sum())
+
+
+def latency_quantile(hist, q: float) -> int:
+    """q-quantile (in ticks) of the election-latency histogram."""
+    h = _np(hist)
+    total = h.sum()
+    if total == 0:
+        return 0
+    return int(np.searchsorted(np.cumsum(h), q * total, side="left"))
+
+
+def unsafe_groups(metrics: Metrics) -> int:
+    """Count of groups whose per-tick safety bit dropped at any point."""
+    return int((_np(metrics.safety) == 0).sum())
+
+
+def latency_censored(hist, q: float) -> bool:
+    """True iff the q-quantile landed in the absorbing top bucket — the
+    reported quantile is then a floor, not a measurement."""
+    h = _np(hist)
+    return bool(h.sum() > 0 and latency_quantile(hist, q) >= h.shape[0] - 1)
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

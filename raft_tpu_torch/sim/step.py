@@ -1,0 +1,558 @@
+"""The batched Raft tick in plain PyTorch: the reference inside the port
+for the CUDA fused-chunk kernel (sim/kernel.py), and the JAX package's
+`sim/step.py` `tick` written over tensors.
+
+Every handler runs over the whole `[G, K]` batch at once — one lane per
+replica, the batch axes written out where the JAX package `vmap`s —
+with the sender `src` a Python int, so the canonical (type, src) inbox
+order of the tick contract (DESIGN.md §2) is the statically unrolled
+6 x K chain of masked handler applications. Dynamic ring reads are
+`gather`s; masked writes are `where`s.
+
+Layouts: node leaves `[G, K]`, `[G, K, K]` (peer vectors), `[G, K, L]`
+(rings); the mailbox `[G, dst, src]`. A handler for messages from
+`src` reads the inbox column `mb[:, :, src]` (every receiver at once)
+and writes its reply into the outbox row `out[:, src, :]` (the
+receivers are the senders of the reply).
+
+Faults (DESIGN.md §4) apply at the batch level: the delivery filter
+masks occupancy bits, dead nodes' state is frozen wholesale and their
+outbox erased (their in-flight mail survives), and the dead->alive edge
+rewinds volatile state.
+
+Only the features of this slice exist here (config.py refuses the
+rest): RequestVote, AppendEntries, InstallSnapshot, fire-hose commands,
+commit/apply/compaction, crash/partition/drop faults.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raft_tpu_torch.config import RaftConfig
+from raft_tpu_torch.core.node import CANDIDATE, FOLLOWER, LEADER, NO_VOTE
+from raft_tpu_torch.ops import quorum
+from raft_tpu_torch.sim.state import (I32, PRESENT_FIELDS, Mailbox, PerNode,
+                                      State, empty_mailbox)
+from raft_tpu_torch.utils import trng
+
+W = torch.where
+
+# --------------------------------------------------------------- log helpers
+# Ring addressing: absolute index i lives in slot (i - 1) % L (floor-mod:
+# index 0 maps to slot L - 1, never to -1).
+
+
+def _slot(cfg: RaftConfig, idx):
+    return torch.remainder(idx - 1, cfg.log_cap)
+
+
+def _lget(arr, idx):
+    """arr[..., idx] over the trailing axis, per lane."""
+    return torch.gather(arr, -1, idx.unsqueeze(-1).long()).squeeze(-1)
+
+
+def _lset(arr, idx, cond, val):
+    """Masked arr[..., idx] = val over the trailing axis."""
+    lanes = torch.arange(arr.shape[-1], dtype=I32, device=arr.device)
+    hit = (lanes == idx.unsqueeze(-1)) & cond.unsqueeze(-1)
+    if isinstance(val, torch.Tensor):
+        val = val.unsqueeze(-1)
+    return W(hit, val, arr)
+
+
+def _term_at(cfg, ns: PerNode, idx):
+    """Term of absolute index idx; valid for snap_index <= idx <=
+    last_index (callers mask the rest)."""
+    return W(idx == ns.snap_index, ns.snap_term,
+             _lget(ns.log_term, _slot(cfg, idx)))
+
+
+def _payload_at(cfg, ns: PerNode, idx):
+    return _lget(ns.log_payload, _slot(cfg, idx))
+
+
+def _last_log_term(cfg, ns: PerNode):
+    return _term_at(cfg, ns, ns.last_index)
+
+
+def _put(out: dict, field: str, dst: int, cond, val):
+    """Masked write of every node's outbox slot to `dst`."""
+    a = out[field]
+    a[:, dst, :] = W(cond, val, a[:, dst, :])
+
+
+def _abs_index(cfg, ns: PerNode):
+    """i32[..., L]: the absolute index each live-window ring slot holds
+    (slots beyond last_index are stale; callers mask)."""
+    lanes = torch.arange(cfg.log_cap, dtype=I32, device=ns.snap_index.device)
+    off = lanes - (ns.snap_index % cfg.log_cap).unsqueeze(-1)
+    return ns.snap_index.unsqueeze(-1) + 1 + W(off >= 0, off,
+                                               off + cfg.log_cap)
+
+
+def _vote_quorum(cfg, votes):
+    return quorum.vote_count(votes) >= cfg.majority
+
+
+# -------------------------------------------------------------- transitions
+
+
+def _reset_timer(cfg, ns: PerNode, g, i, cond):
+    """One counted election-deadline draw."""
+    deadline = trng.election_deadline(cfg.seed, g, i, ns.rng_draws,
+                                      cfg.election_min, cfg.election_range)
+    return ns._replace(
+        election_elapsed=W(cond, 0, ns.election_elapsed),
+        deadline=W(cond, deadline, ns.deadline),
+        rng_draws=ns.rng_draws + cond.to(I32),
+    )
+
+
+def _step_down(cfg, ns: PerNode, new_term, cond):
+    """Adopt term, follower, no timer reset."""
+    return ns._replace(
+        term=W(cond, new_term, ns.term),
+        role=W(cond, FOLLOWER, ns.role),
+        voted_for=W(cond, NO_VOTE, ns.voted_for),
+        leader_id=W(cond, NO_VOTE, ns.leader_id),
+        votes=ns.votes & ~cond.unsqueeze(-1),
+    )
+
+
+def _become_leader(cfg, ns: PerNode, i, cond):
+    """Leadership, including the takeover re-proposal (DESIGN.md §2a):
+    the top uncommitted entry takes the new term in place."""
+    c1 = cond.unsqueeze(-1)
+    ns = ns._replace(
+        role=W(cond, LEADER, ns.role),
+        leader_id=W(cond, i, ns.leader_id),
+        next_index=W(c1, (ns.last_index + 1).unsqueeze(-1), ns.next_index),
+        match_index=W(c1, 0, ns.match_index),
+        heartbeat_elapsed=W(cond, cfg.heartbeat_every, ns.heartbeat_elapsed),
+    )
+    top = cond & (ns.last_index > ns.commit)
+    return ns._replace(log_term=_lset(ns.log_term, _slot(cfg, ns.last_index),
+                                      top, ns.term))
+
+
+def _accept_leader(cfg, ns: PerNode, g, i, src: int, cond):
+    ns = ns._replace(
+        role=W(cond, FOLLOWER, ns.role),
+        leader_id=W(cond, src, ns.leader_id),
+        votes=ns.votes & ~cond.unsqueeze(-1),
+        leader_elapsed=W(cond, 0, ns.leader_elapsed),
+    )
+    return _reset_timer(cfg, ns, g, i, cond)
+
+
+# ----------------------------------------------------------------- phase D
+
+
+def _on_rv_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    present = ib.rv_req_present[:, :, src]
+    m_term = ib.rv_req_term[:, :, src]
+    m_lli = ib.rv_req_lli[:, :, src]
+    m_llt = ib.rv_req_llt[:, :, src]
+    ns = _step_down(cfg, ns, m_term, present & (m_term > ns.term))
+    llt = _last_log_term(cfg, ns)
+    log_ok = (m_llt > llt) | ((m_llt == llt) & (m_lli >= ns.last_index))
+    grant = (present & (m_term == ns.term)
+             & ((ns.voted_for == NO_VOTE) | (ns.voted_for == src))
+             & log_ok)
+    ns = ns._replace(voted_for=W(grant, src, ns.voted_for))
+    ns = _reset_timer(cfg, ns, g, i, grant)
+    _put(out, "rv_resp_present", src, present, True)
+    _put(out, "rv_resp_term", src, present, ns.term)
+    _put(out, "rv_resp_granted", src, present, grant)
+    return ns
+
+
+def _on_rv_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    present = ib.rv_resp_present[:, :, src]
+    m_term = ib.rv_resp_term[:, :, src]
+    m_granted = ib.rv_resp_granted[:, :, src]
+    higher = present & (m_term > ns.term)
+    ns = _step_down(cfg, ns, m_term, higher)
+    cont = (present & ~higher & (ns.role == CANDIDATE)
+            & (m_term == ns.term) & m_granted)
+    votes = ns.votes.clone()
+    votes[..., src] |= cont
+    ns = ns._replace(votes=votes)
+    won = cont & _vote_quorum(cfg, votes)
+    return _become_leader(cfg, ns, i, won)
+
+
+def _on_ae_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    """The log-matching workhorse. Entries are pulled from the sender's
+    ring as of the end of the previous tick (`gl`, the group's [G, K, L]
+    rings): the range (prev, prev + n] cannot change between the send
+    and this delivery. Reads of the receiver's own ring see this tick's
+    earlier handlers' writes (sequential delivery)."""
+    glog_t, glog_p = gl
+    present = ib.ae_req_present[:, :, src]
+    m_term = ib.ae_req_term[:, :, src]
+    m_prev = ib.ae_req_prev_index[:, :, src]
+    m_prev_term = ib.ae_req_prev_term[:, :, src]
+    m_n = ib.ae_req_n[:, :, src]
+    m_commit = ib.ae_req_commit[:, :, src]
+    E = cfg.max_entries_per_msg
+    ent_t = [_lget(glog_t[:, src:src + 1, :].expand_as(glog_t),
+                   _slot(cfg, m_prev + 1 + j)) for j in range(E)]
+    ent_p = [_lget(glog_p[:, src:src + 1, :].expand_as(glog_p),
+                   _slot(cfg, m_prev + 1 + j)) for j in range(E)]
+
+    ns = _step_down(cfg, ns, m_term, present & (m_term > ns.term))
+    stale = present & (m_term < ns.term)
+    ok = present & ~stale
+    ns = _accept_leader(cfg, ns, g, i, src, ok)
+
+    past = ok & (m_prev > ns.last_index)
+    conflict = (ok & ~past & (m_prev >= ns.snap_index)
+                & (_term_at(cfg, ns, m_prev) != m_prev_term))
+    # Fast backup to the first index of the conflicting term: one past
+    # the highest in-window index below m_prev whose term differs.
+    ct = _term_at(cfg, ns, m_prev)
+    absidx = _abs_index(cfg, ns)
+    snap1 = ns.snap_index.unsqueeze(-1)
+    bad = ((absidx > snap1) & (absidx < m_prev.unsqueeze(-1))
+           & (ns.log_term != ct.unsqueeze(-1)))
+    ci = torch.minimum(W(bad, absidx, snap1).amax(-1) + 1, m_prev)
+
+    proceed = ok & ~past & ~conflict
+    # Entry walk, decide then write: the E entries address E consecutive
+    # indices, pairwise distinct ring slots, so within one message no
+    # write feeds a later read.
+    j0 = torch.clamp(ns.snap_index - m_prev, min=0)
+    hi = m_prev + j0
+    last_index = ns.last_index
+    stopped = torch.zeros_like(present)
+    write_t, write_p, slots = [], [], []
+    for j in range(E):
+        idx = m_prev + 1 + j
+        act = proceed & (j0 <= j) & (m_n > j) & ~stopped
+        s = _slot(cfg, idx)
+        slots.append(s)
+        in_log = act & (idx <= last_index)
+        same_t = in_log & (_lget(ns.log_term, s) == ent_t[j])
+        same_p = in_log & ~same_t & (_lget(ns.log_payload, s) == ent_p[j])
+        diverge = in_log & ~same_t & ~same_p   # truncate, then append
+        need_append = (act & ~in_log) | diverge
+        room = (idx - ns.snap_index) <= cfg.log_cap
+        do_append = need_append & room
+        write_t.append(same_p | do_append)
+        write_p.append(do_append)
+        last_index = W(do_append, idx,
+                       W(diverge & ~room, idx - 1, last_index))
+        stopped = stopped | (need_append & ~room)
+        hi = W(same_t | same_p | do_append, idx, hi)
+    log_term, log_payload = ns.log_term, ns.log_payload
+    for j in range(E):
+        log_term = _lset(log_term, slots[j], write_t[j], ent_t[j])
+        log_payload = _lset(log_payload, slots[j], write_p[j], ent_p[j])
+
+    commit = W(proceed & (m_commit > ns.commit),
+               torch.maximum(ns.commit, torch.minimum(m_commit, hi)),
+               ns.commit)
+    ns = ns._replace(log_term=log_term, log_payload=log_payload,
+                     last_index=last_index, commit=commit)
+    match = W(past, last_index + 1, W(conflict, ci, W(proceed, hi, 0)))
+    _put(out, "ae_resp_present", src, present, True)
+    _put(out, "ae_resp_term", src, present, ns.term)
+    _put(out, "ae_resp_success", src, present, proceed)
+    _put(out, "ae_resp_match", src, present, match)
+    return ns
+
+
+def _set_peer(vec, src: int, val):
+    vec = vec.clone()
+    vec[..., src] = val
+    return vec
+
+
+def _on_ae_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    present = ib.ae_resp_present[:, :, src]
+    m_term = ib.ae_resp_term[:, :, src]
+    m_success = ib.ae_resp_success[:, :, src]
+    m_match = ib.ae_resp_match[:, :, src]
+    higher = present & (m_term > ns.term)
+    ns = _step_down(cfg, ns, m_term, higher)
+    cont = present & ~higher & (ns.role == LEADER) & (m_term == ns.term)
+    succ = cont & m_success
+    fail = cont & ~m_success
+    mi = ns.match_index[..., src]
+    ni = ns.next_index[..., src]
+    new_match = torch.maximum(mi, m_match)
+    back = torch.clamp(torch.minimum(ni - 1, m_match), min=1)
+    return ns._replace(
+        match_index=_set_peer(ns.match_index, src, W(succ, new_match, mi)),
+        next_index=_set_peer(ns.next_index, src,
+                             W(succ, new_match + 1, W(fail, back, ni))))
+
+
+def _on_is_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    present = ib.is_req_present[:, :, src]
+    m_term = ib.is_req_term[:, :, src]
+    m_si = ib.is_req_snap_index[:, :, src]
+    m_st = ib.is_req_snap_term[:, :, src]
+    m_sd = ib.is_req_snap_digest[:, :, src]
+    m_sv = ib.is_req_snap_voters[:, :, src]
+    ns = _step_down(cfg, ns, m_term, present & (m_term > ns.term))
+    stale = present & (m_term < ns.term)
+    ok = present & ~stale
+    ns = _accept_leader(cfg, ns, g, i, src, ok)
+    have = ok & (m_si <= ns.commit)   # already covered
+    inst = ok & ~have
+    # Keep the suffix when it matches: in the ring model last_index is
+    # simply left alone (slots are absolute).
+    keep = (inst & (m_si <= ns.last_index) & (m_si >= ns.snap_index)
+            & (_term_at(cfg, ns, torch.maximum(m_si, ns.snap_index)) == m_st))
+    ns = ns._replace(
+        last_index=W(inst, W(keep, ns.last_index, m_si), ns.last_index),
+        snap_index=W(inst, m_si, ns.snap_index),
+        snap_term=W(inst, m_st, ns.snap_term),
+        snap_digest=W(inst, m_sd, ns.snap_digest),
+        snap_voters=W(inst, m_sv, ns.snap_voters),
+        commit=W(inst, m_si, ns.commit),
+        applied=W(inst, m_si, ns.applied),
+        digest=W(inst, m_sd, ns.digest),
+    )
+    match = W(stale, 0, W(have, ns.commit, m_si))
+    _put(out, "is_resp_present", src, present, True)
+    _put(out, "is_resp_term", src, present, ns.term)
+    _put(out, "is_resp_match", src, present, match)
+    return ns
+
+
+def _on_is_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    present = ib.is_resp_present[:, :, src]
+    m_term = ib.is_resp_term[:, :, src]
+    m_match = ib.is_resp_match[:, :, src]
+    higher = present & (m_term > ns.term)
+    ns = _step_down(cfg, ns, m_term, higher)
+    cont = present & ~higher & (ns.role == LEADER) & (m_term == ns.term)
+    mi = ns.match_index[..., src]
+    new_match = torch.maximum(mi, m_match)
+    return ns._replace(
+        match_index=_set_peer(ns.match_index, src, W(cont, new_match, mi)),
+        next_index=_set_peer(ns.next_index, src,
+                             W(cont, new_match + 1, ns.next_index[..., src])))
+
+
+_HANDLERS = (_on_rv_req, _on_rv_resp, _on_ae_req, _on_ae_resp,
+             _on_is_req, _on_is_resp)   # canonical rpc type order
+
+
+def _start_election_masked(cfg, ns, out, g, i, cond):
+    """Term bump, candidacy, fresh timer draw, instant single-voter win,
+    RequestVote broadcast."""
+    lanes = torch.arange(cfg.k, dtype=I32, device=cond.device)
+    ns = ns._replace(
+        term=W(cond, ns.term + 1, ns.term),
+        role=W(cond, CANDIDATE, ns.role),
+        voted_for=W(cond, i, ns.voted_for),
+        leader_id=W(cond, NO_VOTE, ns.leader_id),
+        votes=W(cond.unsqueeze(-1), lanes == i.unsqueeze(-1), ns.votes),
+    )
+    ns = _reset_timer(cfg, ns, g, i, cond)
+    won = cond & _vote_quorum(cfg, ns.votes)
+    ns = _become_leader(cfg, ns, i, won)
+    llt = _last_log_term(cfg, ns)
+    for p in range(cfg.k):
+        send = cond & ~won & (i != p)
+        _put(out, "rv_req_present", p, send, True)
+        _put(out, "rv_req_term", p, send, ns.term)
+        _put(out, "rv_req_lli", p, send, ns.last_index)
+        _put(out, "rv_req_llt", p, send, llt)
+    return ns
+
+
+# ----------------------------------------------------------------- phase T
+
+
+def _phase_t(cfg, ns, out, g, i):
+    """Heartbeat/replication broadcast, then the election timeout."""
+    is_leader = ns.role == LEADER
+    hb = ns.heartbeat_elapsed + 1
+    fire = is_leader & (hb >= cfg.heartbeat_every)
+    ns = ns._replace(heartbeat_elapsed=W(is_leader, W(fire, 0, hb),
+                                         ns.heartbeat_elapsed))
+    for p in range(cfg.k):
+        cond = fire & (i != p)
+        nip = ns.next_index[..., p]
+        use_is = cond & (nip <= ns.snap_index)
+        use_ae = cond & (nip > ns.snap_index)
+        _put(out, "is_req_present", p, use_is, True)
+        _put(out, "is_req_term", p, use_is, ns.term)
+        _put(out, "is_req_snap_index", p, use_is, ns.snap_index)
+        _put(out, "is_req_snap_term", p, use_is, ns.snap_term)
+        _put(out, "is_req_snap_digest", p, use_is, ns.snap_digest)
+        _put(out, "is_req_snap_voters", p, use_is, ns.snap_voters)
+        # No entries ride the message: the receiver pulls (prev,
+        # prev + n] from this sender's ring at delivery.
+        prev = nip - 1
+        n = torch.clamp(ns.last_index - prev, max=cfg.max_entries_per_msg)
+        _put(out, "ae_req_present", p, use_ae, True)
+        _put(out, "ae_req_term", p, use_ae, ns.term)
+        _put(out, "ae_req_prev_index", p, use_ae, prev)
+        _put(out, "ae_req_prev_term", p, use_ae, _term_at(cfg, ns, prev))
+        _put(out, "ae_req_n", p, use_ae, n)
+        _put(out, "ae_req_commit", p, use_ae, ns.commit)
+
+    ee = ns.election_elapsed + 1
+    timeout = ~is_leader & (ee >= ns.deadline)
+    ns = ns._replace(
+        election_elapsed=W(is_leader, ns.election_elapsed, ee),
+        leader_elapsed=W(is_leader, 0, ns.leader_elapsed + 1))
+    return _start_election_masked(cfg, ns, out, g, i, timeout)
+
+
+# ----------------------------------------------------------------- phase C
+
+
+def _phase_c(cfg, ns, g):
+    """Fire-hose command appends by every node that believes itself
+    leader, stopping at a full window."""
+    lead = ns.role == LEADER
+    last_index = ns.last_index
+    log_term, log_payload = ns.log_term, ns.log_payload
+    stopped = torch.zeros_like(lead)
+    for _ in range(cfg.cmds_per_tick):
+        idx = last_index + 1
+        room = (idx - ns.snap_index) <= cfg.log_cap
+        do = lead & room & ~stopped
+        payload = trng.client_payload(cfg.seed, g, ns.term, idx)
+        s = _slot(cfg, idx)
+        log_term = _lset(log_term, s, do, ns.term)
+        log_payload = _lset(log_payload, s, do, payload)
+        last_index = W(do, idx, last_index)
+        stopped = stopped | (lead & ~room)
+    return ns._replace(last_index=last_index, log_term=log_term,
+                       log_payload=log_payload)
+
+
+# ----------------------------------------------------------------- phase A
+
+
+def _phase_a(cfg, ns, i):
+    """Commit advance, apply (the digest chain), compaction."""
+    n = quorum.commit_candidate(ns.match_index, ns.last_index, i,
+                                cfg.k, cfg.majority)
+    # Current-term entries only; n > commit >= snap_index makes the
+    # term read valid under the mask.
+    advance = ((ns.role == LEADER) & (n > ns.commit)
+               & (_term_at(cfg, ns, n) == ns.term))
+    commit = W(advance, n, ns.commit)
+
+    # Apply: commit - applied <= L by the window invariant. Steps past
+    # the batch's largest gap are no-ops, so the loop stops there.
+    applied, digest = ns.applied, ns.digest
+    steps = int((commit - applied).amax().clamp(0, cfg.log_cap))
+    for _ in range(steps):
+        idx = applied + 1
+        act = idx <= commit
+        p = _payload_at(cfg, ns, idx)
+        digest = W(act, trng.digest_update(digest, idx, p), digest)
+        applied = W(act, idx, applied)
+
+    compact = (commit - ns.snap_index) >= cfg.compact_every
+    return ns._replace(
+        commit=commit, applied=applied, digest=digest,
+        snap_term=W(compact, _term_at(cfg, ns, commit), ns.snap_term),
+        snap_voters=W(compact, cfg.full_mask, ns.snap_voters),
+        snap_index=W(compact, commit, ns.snap_index),
+        snap_digest=W(compact, digest, ns.snap_digest),
+    )
+
+
+# ------------------------------------------------------------ per-node tick
+
+
+def _node_tick(cfg, nodes: PerNode, inbox: Mailbox, g, i):
+    """Every replica's phases D/T/C/A at once. Returns the new nodes and
+    the outbox ([G, dst, src])."""
+    gsz, k = nodes.role.shape
+    out = empty_mailbox((gsz, k, k), nodes.role.device)._asdict()
+    gl = (nodes.log_term, nodes.log_payload)   # end-of-previous-tick rings
+    ns = nodes
+    for handler in _HANDLERS:
+        for src in range(cfg.k):
+            ns = handler(cfg, ns, out, g, i, src, inbox, gl)
+    ns = _phase_t(cfg, ns, out, g, i)
+    ns = _phase_c(cfg, ns, g)
+    ns = _phase_a(cfg, ns, i)
+    return ns, Mailbox(**out)
+
+
+# ------------------------------------------------------------- global tick
+
+
+def _apply_restart(cfg, nodes: PerNode, g_grid, i_grid, edge):
+    """Restart: durable state survives, volatile state rewinds."""
+    new_deadline = trng.election_deadline(cfg.seed, g_grid, i_grid,
+                                          nodes.rng_draws, cfg.election_min,
+                                          cfg.election_range)
+    e1 = edge.unsqueeze(-1)
+    return nodes._replace(
+        role=W(edge, FOLLOWER, nodes.role),
+        leader_id=W(edge, NO_VOTE, nodes.leader_id),
+        commit=W(edge, nodes.snap_index, nodes.commit),
+        applied=W(edge, nodes.snap_index, nodes.applied),
+        digest=W(edge, nodes.snap_digest, nodes.digest),
+        votes=nodes.votes & ~e1,
+        next_index=W(e1, 1, nodes.next_index),
+        match_index=W(e1, 0, nodes.match_index),
+        heartbeat_elapsed=W(edge, 0, nodes.heartbeat_elapsed),
+        election_elapsed=W(edge, 0, nodes.election_elapsed),
+        leader_elapsed=W(edge, 0, nodes.leader_elapsed),
+        deadline=W(edge, new_deadline, nodes.deadline),
+        rng_draws=nodes.rng_draws + edge.to(I32),
+        ack_time=W(e1, -1, nodes.ack_time),
+        sched_read_index=W(edge, -1, nodes.sched_read_index),
+        reads_done=W(edge, 0, nodes.reads_done),
+    )
+
+
+def _filter_mailbox(cfg, mb: Mailbox, t, alive_now, group_id) -> Mailbox:
+    """Delivery filter: dead destinations, partitioned links, dropped
+    links. Layout [G, dst, src]."""
+    k = alive_now.shape[1]
+    dev = alive_now.device
+    gg = group_id[:, None, None]
+    dst = torch.arange(k, dtype=I32, device=dev)[None, :, None]
+    src = torch.arange(k, dtype=I32, device=dev)[None, None, :]
+    part = trng.link_partitioned(cfg.seed, gg, t, src, dst,
+                                 cfg.partition_u32, cfg.partition_epoch)
+    drop = trng.link_dropped(cfg.seed, gg, t, src, dst, cfg.drop_u32)
+    keep = alive_now[:, :, None] & ~part & ~drop
+    return mb._replace(**{f: getattr(mb, f) & keep for f in PRESENT_FIELDS})
+
+
+def tick(cfg: RaftConfig, st: State, t: int) -> State:
+    """One global tick over all [G, K] replicas. `t` is the absolute
+    tick (the fault schedules hash it)."""
+    g, k = st.alive_prev.shape
+    dev = st.alive_prev.device
+    g_grid = st.group_id[:, None].expand(g, k)
+    i_grid = torch.arange(k, dtype=I32, device=dev)[None, :].expand(g, k)
+    alive_now = trng.node_alive(cfg.seed, g_grid, i_grid, t, cfg.crash_u32,
+                                cfg.crash_epoch).expand(g, k)
+    nodes = _apply_restart(cfg, st.nodes, g_grid, i_grid,
+                           alive_now & ~st.alive_prev)
+    inbox = _filter_mailbox(cfg, st.mailbox, t, alive_now, st.group_id)
+    new_nodes, outbox = _node_tick(cfg, nodes, inbox, g_grid, i_grid)
+
+    # Dead nodes: state frozen, sends erased; their in-flight mail stays.
+    def freeze(new, old):
+        if new is None:
+            return None
+        m = alive_now.reshape(alive_now.shape + (1,) * (new.dim() - 2))
+        return W(m, new, old)
+
+    new_nodes = PerNode(*(freeze(a, b) for a, b in zip(new_nodes, nodes)))
+    src_alive = alive_now[:, None, :]   # sender axis is 2 in [G, dst, src]
+    outbox = outbox._replace(**{f: getattr(outbox, f) & src_alive
+                                for f in PRESENT_FIELDS})
+    return State(nodes=new_nodes, mailbox=outbox,
+                 alive_prev=alive_now.contiguous(), group_id=st.group_id)
+

@@ -1,0 +1,86 @@
+"""Structural rules of the port: no module of raft_tpu_torch/ and not
+chip_smoke.py imports jax or the JAX package (an AST scan of every
+import), entry points default to the CUDA device, and the kernel source
+is the one the wrapper builds for sm_90a."""
+
+from __future__ import annotations
+
+import ast
+import inspect
+from pathlib import Path
+
+import pytest
+
+from raft_tpu_torch.sim import kernel, run, state
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__"):
+            for a in node.args:
+                if isinstance(a, ast.Constant) and isinstance(a.value, str):
+                    roots.add(a.value.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "raft_tpu"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_scan_sees_imports():
+    """The scanner has teeth: it finds each form of import."""
+    src = ROOT / "tests" / "test_torch_run.py"
+    roots = _imported_roots(src)
+    assert {"jax", "raft_tpu", "raft_tpu_torch"} <= roots
+
+
+@pytest.mark.parametrize("fn", [state.init, run.metrics_init],
+                         ids=["state.init", "run.metrics_init"])
+def test_entry_points_default_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_kernel_source_and_build_flags():
+    assert kernel.SOURCE.is_file()
+    assert kernel.SOURCE.relative_to(ROOT) == \
+        Path("raft_tpu_torch/csrc/fused_chunk.cu")
+    flags = " ".join(kernel.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    text = kernel.SOURCE.read_text()
+    assert "pkernel.py:1950" in text and "fused_chunk_launch" in text
+
+
+def test_wire_fields_follow_the_kernel_enum():
+    """The wrapper's field order is the kernel's `Field` enum order."""
+    text = kernel.SOURCE.read_text()
+    body = text[text.index("enum Field {"):text.index("F_MB0,")]
+    enum = [w.strip() for w in body.split("{", 1)[1].replace("\n", " ")
+            .split(",") if w.strip()]
+    assert enum == ["F_" + f.upper() for f in kernel.WIRE_FIELDS[:len(enum)]]
+    mb = text[text.index("enum Mb {"):text.index("N_MB\n")]
+    mb_enum = [w.strip() for w in mb.split("{", 1)[1].replace("\n", " ")
+               .split(",") if w.strip()]
+    assert mb_enum == [f.upper() for f in state.MB_FIELDS]
+
+
+def test_kstep_counts_no_launch_on_cpu():
+    from raft_tpu_torch.config import RaftConfig
+    cfg = RaftConfig(n_groups=2, k=3, log_cap=8, compact_every=4)
+    leaves, _ = kernel.kinit(cfg, state.init(cfg, device="cpu"))
+    before = kernel.kstep.launches
+    kernel.kstep(cfg, leaves, 0, 2)
+    assert kernel.kstep.launches == before
