@@ -6,9 +6,11 @@ Probabilities are floats in [0, 1], converted to uint32 thresholds
 (`*_u32`) so every engine makes bit-identical draws against the
 counter-based hashes (utils/trng.py).
 
-This slice of the port runs the default protocol with crash, partition
-and drop faults. Every other feature raises `NotImplementedError` when
-the config is built, never partway through a run (`_UNPORTED`).
+The port runs the default protocol with crash, partition and drop
+faults, PreVote, leadership transfer, single-server membership change
+and scheduled ReadIndex reads. Every other feature raises
+`NotImplementedError` when the config is built, never partway through a
+run (`_UNPORTED`).
 Validation failures raise `ValueError` (the JAX package asserts).
 """
 
@@ -17,6 +19,11 @@ from __future__ import annotations
 import dataclasses
 
 _U32 = 0xFFFFFFFF
+
+# Log-entry payload encoding: client payloads are 30-bit hashes; a set
+# CONFIG_FLAG bit marks a membership-change entry whose low k bits are
+# the new voter bitmask.
+CONFIG_FLAG = 1 << 30
 
 
 def _prob_to_u32(p: float) -> int:
@@ -30,13 +37,9 @@ def _prob_to_u32(p: float) -> int:
     return min(int(p * 4294967296.0), _U32)
 
 
-# (field, predicate on its value, what it is) for every feature this
-# slice does not port. Each is refused at construction.
+# (field, predicate on its value, what it is) for every feature the
+# port does not carry yet. Each is refused at construction.
 _UNPORTED = (
-    ("prevote", lambda v: v, "PreVote"),
-    ("reconfig_prob", lambda v: v > 0.0, "membership change"),
-    ("transfer_prob", lambda v: v > 0.0, "leadership transfer"),
-    ("read_every", lambda v: v != 0, "scheduled linearizable reads"),
     ("client_rate", lambda v: v > 0.0, "scheduled client traffic"),
     ("sessions", lambda v: v, "client sessions"),
     ("nemesis", lambda v: len(v) > 0, "the nemesis program"),
@@ -142,6 +145,18 @@ class RaftConfig:
     @property
     def full_mask(self) -> int:
         return (1 << self.k) - 1
+
+    @property
+    def effective_min_voters(self) -> int:
+        return self.min_voters if self.min_voters > 0 else self.k // 2 + 1
+
+    @property
+    def reconfig_u32(self) -> int:
+        return _prob_to_u32(self.reconfig_prob)
+
+    @property
+    def transfer_u32(self) -> int:
+        return _prob_to_u32(self.transfer_prob)
 
     @property
     def drop_u32(self) -> int:

@@ -3,16 +3,28 @@
 //
 // Replaces the JAX package's Pallas kernel raft_tpu/sim/pkernel.py:1950
 // (`_build_kernel` -> `kernel`, launched by `_prun_padded_impl` through
-// `pl.pallas_call`), for the features this slice ports: RequestVote,
+// `pl.pallas_call`), for the features the port carries: RequestVote,
 // AppendEntries, InstallSnapshot, fire-hose commands, commit/apply/
 // compaction, crash/partition/drop faults, the election-latency histogram
-// and the per-tick safety fold. It computes what `raft_tpu_torch.sim.run.run`
+// and the per-tick safety fold, and four protocol features — PreVote,
+// leadership transfer (TimeoutNow), single-server membership change and
+// scheduled ReadIndex reads. It computes what `raft_tpu_torch.sim.run.run`
 // computes over the same ticks (the plain PyTorch tick, sim/step.py), bit for
 // bit; chip_smoke.py holds the two equal on the card.
 //
+// Features. Each protocol feature is a compile-time flag (FC_PREVOTE,
+// FC_TRANSFER, FC_RECONFIG, FC_READS, set by kernel.py per build) guarding
+// its code with `if constexpr`: the build with all four off carries none of
+// their code, branches or mailbox rows, and the launcher refuses a config
+// whose flags differ from the build's. The PreVote/TimeoutNow mailbox
+// slots ride the wire, and the outbox frame, only when their flags are on;
+// the voter set is an i32 bitmask (k <= 8 here) derived from the node's own
+// ring by a scan of the live window, never stored.
+//
 // Design. Groups never talk to each other, so each thread steps its own
 // group through the tick loop sequentially: nodes 0..K-1, each through the
-// six handler types in canonical (type, src) order, then phases T, C, A —
+// handler types in canonical (type, src) order (PreVote and TimeoutNow
+// last), then phases T, C, A —
 // the sequential tick contract written out directly, with the data-
 // dependent branches a thread can take. The TPU kernel's one-hot selects,
 // [GS,128] fold and bool->i32 carries are gone: a ring read is an indexed
@@ -37,14 +49,37 @@
 // (about 4.7 KB per group; at 100K groups far more than the 50 MB L2), so
 // every tick streams each group's mailbox, rings and scalars through HBM
 // and local memory; the integer work per group-tick is a few thousand
-// operations. PERF.md records the measured time beside both bounds. Where
-// the per-group state should live instead (registers or shared memory
-// across the tick loop) is left to a later change.
+// operations. One thread per group also leaves the card short of threads
+// below a few hundred thousand groups, so each thread's long dependent
+// chain of loads sets the time: a 200-tick launch takes about as long at
+// 50K groups as at 100K. PERF.md records the measured times beside both
+// bounds. Where the per-group state should live instead (registers or
+// shared memory across the tick loop), and more threads per group, are
+// left to a later change.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
+#ifndef FC_PREVOTE
+#define FC_PREVOTE 0
+#endif
+#ifndef FC_TRANSFER
+#define FC_TRANSFER 0
+#endif
+#ifndef FC_RECONFIG
+#define FC_RECONFIG 0
+#endif
+#ifndef FC_READS
+#define FC_READS 0
+#endif
+
 namespace {
+
+constexpr bool PREVOTE = FC_PREVOTE != 0;
+constexpr bool TRANSFER = FC_TRANSFER != 0;
+constexpr bool RECONFIG = FC_RECONFIG != 0;
+constexpr bool READS = FC_READS != 0;
 
 constexpr int KMAX = 8;    // kernel.py refuses larger k
 constexpr int LMAX = 64;   // kernel.py refuses larger log_cap
@@ -52,8 +87,13 @@ constexpr int LMAX = 64;   // kernel.py refuses larger log_cap
 constexpr uint32_t GOLD = 0x9E3779B9u;
 constexpr uint32_t SEED0 = 0x243F6A88u;
 constexpr uint32_t TAG_TIMEOUT = 1, TAG_DROP = 2, TAG_CRASH = 3,
-                   TAG_PART = 4, TAG_PART_SIDE = 5, TAG_CMD = 6;
-constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, NO_VOTE = -1;
+                   TAG_PART = 4, TAG_PART_SIDE = 5, TAG_CMD = 6,
+                   TAG_RECONFIG = 7, TAG_RECONFIG_NODE = 8, TAG_TRANSFER = 9,
+                   TAG_TRANSFER_NODE = 10;
+constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, PRECANDIDATE = 3,
+              NO_VOTE = -1;
+constexpr int CONFIG_FLAG = 1 << 30;   // membership entry: low k bits voters
+constexpr int INT_MAX_ = 0x7FFFFFFF;
 
 // Wire fields, in the order of kernel.py `WIRE_FIELDS`. The offsets come
 // from the wrapper; fields from F_LOG_TERM on are relative to the start of
@@ -67,7 +107,7 @@ enum Field {
   F_ALIVE_PREV, F_GROUP_ID, F_COMMITTED, F_LEADERLESS, F_SAFETY,
   F_LOG_TERM, F_LOG_PAYLOAD,
   F_MB0,   // first mailbox field; the mailbox fields follow in Mb order
-  N_FIELDS = F_MB0 + 26
+  N_FIELDS = F_MB0 + 36
 };
 
 // Mailbox fields, in the order of the Mailbox NamedTuple.
@@ -80,13 +120,29 @@ enum Mb {
   IS_REQ_PRESENT, IS_REQ_TERM, IS_REQ_SNAP_INDEX, IS_REQ_SNAP_TERM,
   IS_REQ_SNAP_DIGEST, IS_REQ_SNAP_VOTERS,
   IS_RESP_PRESENT, IS_RESP_TERM, IS_RESP_MATCH,
+  PV_REQ_PRESENT, PV_REQ_TERM, PV_REQ_LLI, PV_REQ_LLT,
+  PV_RESP_PRESENT, PV_RESP_TERM, PV_RESP_REQ_TERM, PV_RESP_GRANTED,
+  TN_PRESENT, TN_TERM,
   N_MB
 };
+
+// The outbox holds the rows of the slots this build carries: the base 26,
+// then PreVote's 8, then TimeoutNow's 2.
+constexpr int N_PV = TN_PRESENT - PV_REQ_PRESENT;
+constexpr int N_OB = PV_REQ_PRESENT + (PREVOTE ? N_PV : 0) +
+                     (TRANSFER ? N_MB - TN_PRESENT : 0);
+__device__ __forceinline__ constexpr int ob_row(int m) {
+  return m < TN_PRESENT || PREVOTE ? m : m - N_PV;
+}
+__device__ __forceinline__ constexpr int mb_of_row(int r) {
+  return r < PV_REQ_PRESENT || PREVOTE ? r : r + N_PV;
+}
 
 __device__ __forceinline__ bool is_presence(int m) {
   return m == RV_REQ_PRESENT || m == RV_RESP_PRESENT ||
          m == AE_REQ_PRESENT || m == AE_RESP_PRESENT ||
-         m == IS_REQ_PRESENT || m == IS_RESP_PRESENT;
+         m == IS_REQ_PRESENT || m == IS_RESP_PRESENT ||
+         m == PV_REQ_PRESENT || m == PV_RESP_PRESENT || m == TN_PRESENT;
 }
 
 // Parameters of the launch, in the order of kernel.py `_params`.
@@ -95,6 +151,9 @@ enum Param {
   P_HEARTBEAT, P_COMPACT, P_CMDS, P_CRASH_U32, P_CRASH_EPOCH,
   P_PARTITION_U32, P_PARTITION_EPOCH, P_DROP_U32, P_MAJORITY, P_FULL_MASK,
   P_HIST, P_N_WORDS, P_DB_START, P_DB_WORDS, P_T0, P_N_TICKS,
+  P_PREVOTE, P_TRANSFER, P_RECONFIG, P_READS, P_TRANSFER_U32,
+  P_TRANSFER_EPOCH, P_RECONFIG_U32, P_RECONFIG_EPOCH, P_MIN_VOTERS,
+  P_READ_EVERY,
   N_PARAMS
 };
 
@@ -108,6 +167,9 @@ struct Args {
   int majority, full_mask, hist;
   int n_words, db_start, db_words;
   int t0, n_ticks;
+  uint32_t transfer_u32; int transfer_epoch;
+  uint32_t reconfig_u32; int reconfig_epoch, min_voters;
+  int read_every;
   int off[N_FIELDS];
 };
 
@@ -145,7 +207,17 @@ __device__ __forceinline__ int slot_of(int idx, int L) {
 
 // ------------------------------------------------------------- node state
 
-struct Node {
+// Scheduled-read lanes: part of a node's working state only in a build
+// with reads on. (As plain members of Node, never touched, they still
+// cost the base build 48 B of stack frame: 1,616 B against 1,568 B in
+// nvcc's ptxas -v for sm_90a.)
+struct ReadLanes {
+  int ack[KMAX];    // last current-term response tick, by peer
+  int sri, srr, rdone;   // read point (-1 none), registration tick, count
+};
+struct NoReadLanes {};
+
+struct Node : std::conditional_t<READS, ReadLanes, NoReadLanes> {
   int term, voted_for, snap_index, snap_term;
   uint32_t snap_digest;
   int snap_voters, rng_draws, last_index, role, leader_id, commit, applied;
@@ -194,15 +266,74 @@ __device__ __forceinline__ void reset_timer(const Args& a, Node& n,
   n.rng_draws += 1;
 }
 
-__device__ __forceinline__ void step_down(Node& n, int new_term) {
+// (voters, cfg_index) of the membership entry with the highest absolute
+// index <= through in the live window, else the snapshot's config.
+__device__ __forceinline__ void config_scan(const Args& a, const Node& n,
+                                            int through, int& voters,
+                                            int& cfg_index) {
+  const int lim = min(n.last_index, through), base = n.snap_index % a.L;
+  int best = 0, payload = 0;
+  for (int l = 0; l < a.L; ++l) {
+    int off = l - base;
+    int ab = n.snap_index + 1 + (off >= 0 ? off : off + a.L);
+    if ((n.lp[l] & CONFIG_FLAG) && ab <= lim && ab > best) {
+      best = ab;
+      payload = n.lp[l];
+    }
+  }
+  voters = best > 0 ? payload & a.full_mask : n.snap_voters;
+  cfg_index = best > 0 ? best : n.snap_index;
+}
+
+__device__ __forceinline__ int current_voters(const Args& a, const Node& n) {
+  int voters = a.full_mask, cfg_index;
+  if constexpr (RECONFIG) config_scan(a, n, INT_MAX_, voters, cfg_index);
+  return voters;
+}
+
+__device__ __forceinline__ bool is_voter(int voters, int node) {
+  return (voters >> node) & 1;
+}
+
+__device__ __forceinline__ int voter_majority(int voters) {
+  return __popc(static_cast<unsigned>(voters)) / 2 + 1;
+}
+
+// Granted votes from current-config voters reach that config's majority.
+__device__ __forceinline__ bool vote_quorum(const Args& a, const Node& n,
+                                            unsigned votes) {
+  if constexpr (RECONFIG) {
+    const int voters = current_voters(a, n);
+    return __popc(votes & static_cast<unsigned>(voters)) >=
+           voter_majority(voters);
+  } else {
+    return __popc(votes) >= a.majority;
+  }
+}
+
+// The pending scheduled read aborts, the ack evidence goes stale. (A
+// template, as is node_step, so that a build without reads never
+// instantiates the read lanes its Node lacks.)
+template <class N>
+__device__ __forceinline__ void drop_reads(const Args& a, N& n) {
+  if constexpr (READS) {
+    for (int p = 0; p < a.K; ++p) n.ack[p] = -1;
+    n.sri = -1;
+  }
+}
+
+__device__ __forceinline__ void step_down(const Args& a, Node& n,
+                                          int new_term) {
   n.term = new_term;
   n.role = FOLLOWER;
   n.voted_for = NO_VOTE;
   n.leader_id = NO_VOTE;
   n.votes = 0;
+  drop_reads(a, n);
 }
 
 __device__ __forceinline__ void become_leader(const Args& a, Node& n, int i) {
+  drop_reads(a, n);
   n.role = LEADER;
   n.leader_id = i;
   for (int p = 0; p < a.K; ++p) {
@@ -237,6 +368,23 @@ __device__ __forceinline__ int commit_candidate(const Args& a, const Node& n,
   return v[a.majority - 2];
 }
 
+// Voters-aware tally: the majority(voters)-th largest replication index
+// among voters, the leader counting its own last_index iff a voter; -1
+// when there are no voters.
+__device__ __forceinline__ int commit_candidate_voters(const Args& a,
+                                                       const Node& n, int i,
+                                                       int voters) {
+  int v[KMAX];
+  for (int p = 0; p < a.K; ++p)
+    v[p] = !is_voter(voters, p) ? -1 : p == i ? n.last_index : n.match[p];
+  for (int p = 1; p < a.K; ++p) {   // insertion sort, descending
+    int x = v[p], q = p - 1;
+    while (q >= 0 && v[q] < x) { v[q + 1] = v[q]; --q; }
+    v[q + 1] = x;
+  }
+  return v[voter_majority(voters) - 1];
+}
+
 __device__ __forceinline__ void start_election(const Args& a, Node& n,
                                                uint32_t gid, int i,
                                                int (*ob)[KMAX]) {
@@ -246,7 +394,7 @@ __device__ __forceinline__ void start_election(const Args& a, Node& n,
   n.leader_id = NO_VOTE;
   n.votes = 1u << i;
   reset_timer(a, n, gid, i);
-  bool won = __popc(n.votes) >= a.majority;   // single-voter win
+  bool won = vote_quorum(a, n, n.votes);   // single-voter win
   if (won) become_leader(a, n, i);
   if (won) return;
   int llt = term_at(n, n.last_index, a.L);
@@ -261,12 +409,13 @@ __device__ __forceinline__ void start_election(const Args& a, Node& n,
 
 // ------------------------------------------------------------ one node
 
+template <class N = Node>
 __device__ void node_step(const Group& gr, int i, unsigned keep,
-                          bool alive) {
+                          bool alive, int t) {
   const Args& a = gr.a;
   const int K = a.K, L = a.L;
-  const uint32_t gid = gr.gid;
-  Node n;
+  const uint32_t gid = gr.gid, tu = static_cast<uint32_t>(t);
+  N n;
   n.term = gr.s(F_TERM, i);
   n.voted_for = gr.s(F_VOTED_FOR, i);
   n.snap_index = gr.s(F_SNAP_INDEX, i);
@@ -290,14 +439,21 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
   n.hb = gr.s(F_HEARTBEAT_ELAPSED, i);
   n.deadline = gr.s(F_DEADLINE, i);
   n.le = gr.s(F_LEADER_ELAPSED, i);
+  if constexpr (READS) {
+    for (int p = 0; p < K; ++p) n.ack[p] = gr.s(F_ACK_TIME, i * K + p);
+    n.sri = gr.s(F_SCHED_READ_INDEX, i);
+    n.srr = gr.s(F_SCHED_READ_REG, i);
+    n.rdone = gr.s(F_READS_DONE, i);
+  }
   for (int l = 0; l < L; ++l) {
     n.lt[l] = gr.c(F_LOG_TERM, i * L + l);
     n.lp[l] = gr.c(F_LOG_PAYLOAD, i * L + l);
   }
 
-  int ob[N_MB][KMAX];   // this node's outbox, by destination
-  for (int m = 0; m < N_MB; ++m)
-    for (int p = 0; p < K; ++p) ob[m][p] = 0;
+  int ob[N_OB][KMAX];   // this node's outbox, by destination
+  for (int r = 0; r < N_OB; ++r)
+    for (int p = 0; p < K; ++p) ob[r][p] = 0;
+#define OB(m, dst) ob[ob_row(m)][dst]
 
   // inbox field m from src (dst = i), as delivered this tick
 #define IN(m, src) gr.c(F_MB0 + (m), i * K + (src))
@@ -308,7 +464,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     if (!PRESENT(RV_REQ_PRESENT, s)) continue;
     int mt = IN(RV_REQ_TERM, s), lli = IN(RV_REQ_LLI, s),
         llt = IN(RV_REQ_LLT, s);
-    if (mt > n.term) step_down(n, mt);
+    if (mt > n.term) step_down(a, n, mt);
     int my_llt = term_at(n, n.last_index, L);
     bool log_ok = llt > my_llt || (llt == my_llt && lli >= n.last_index);
     bool grant = mt == n.term &&
@@ -326,10 +482,10 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     int mt = IN(RV_RESP_TERM, s);
     bool granted = IN(RV_RESP_GRANTED, s) != 0;
     bool higher = mt > n.term;
-    if (higher) step_down(n, mt);
+    if (higher) step_down(a, n, mt);
     if (!higher && n.role == CANDIDATE && mt == n.term && granted) {
       n.votes |= 1u << s;
-      if (__popc(n.votes) >= a.majority) become_leader(a, n, i);
+      if (vote_quorum(a, n, n.votes)) become_leader(a, n, i);
     }
   }
   for (int s = 0; s < K; ++s) {   // AppendEntries request
@@ -337,7 +493,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     int mt = IN(AE_REQ_TERM, s), prev = IN(AE_REQ_PREV_INDEX, s),
         prev_term = IN(AE_REQ_PREV_TERM, s), mn = IN(AE_REQ_N, s),
         mcommit = IN(AE_REQ_COMMIT, s);
-    if (mt > n.term) step_down(n, mt);
+    if (mt > n.term) step_down(a, n, mt);
     bool proceed = false;
     int match = 0;
     if (mt >= n.term) {   // not stale
@@ -398,8 +554,9 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     int mt = IN(AE_RESP_TERM, s), mm = IN(AE_RESP_MATCH, s);
     bool success = IN(AE_RESP_SUCCESS, s) != 0;
     bool higher = mt > n.term;
-    if (higher) step_down(n, mt);
+    if (higher) step_down(a, n, mt);
     if (!higher && n.role == LEADER && mt == n.term) {
+      if constexpr (READS) n.ack[s] = t;   // ReadIndex deference evidence
       if (success) {
         int nm = max(n.match[s], mm);
         n.match[s] = nm;
@@ -414,7 +571,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     int mt = IN(IS_REQ_TERM, s), si = IN(IS_REQ_SNAP_INDEX, s),
         sterm = IN(IS_REQ_SNAP_TERM, s), sv = IN(IS_REQ_SNAP_VOTERS, s);
     uint32_t sd = static_cast<uint32_t>(IN(IS_REQ_SNAP_DIGEST, s));
-    if (mt > n.term) step_down(n, mt);
+    if (mt > n.term) step_down(a, n, mt);
     int match = 0;
     if (mt >= n.term) {
       accept_leader(a, n, gid, i, s);
@@ -442,11 +599,51 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     if (!PRESENT(IS_RESP_PRESENT, s)) continue;
     int mt = IN(IS_RESP_TERM, s), mm = IN(IS_RESP_MATCH, s);
     bool higher = mt > n.term;
-    if (higher) step_down(n, mt);
+    if (higher) step_down(a, n, mt);
     if (!higher && n.role == LEADER && mt == n.term) {
+      if constexpr (READS) n.ack[s] = t;
       int nm = max(n.match[s], mm);
       n.match[s] = nm;
       n.next[s] = nm + 1;
+    }
+  }
+  if constexpr (PREVOTE) {
+    for (int s = 0; s < K; ++s) {   // PreVote request: grant, no adoption
+      if (!PRESENT(PV_REQ_PRESENT, s)) continue;
+      int mt = IN(PV_REQ_TERM, s), lli = IN(PV_REQ_LLI, s),
+          llt = IN(PV_REQ_LLT, s);
+      int my_llt = term_at(n, n.last_index, L);
+      bool log_ok = llt > my_llt || (llt == my_llt && lli >= n.last_index);
+      bool grant = mt > n.term && log_ok && n.role != LEADER &&
+                   n.le >= a.election_min;   // the leader lease
+      OB(PV_RESP_PRESENT, s) = 1;
+      OB(PV_RESP_TERM, s) = n.term;
+      OB(PV_RESP_REQ_TERM, s) = mt;
+      OB(PV_RESP_GRANTED, s) = grant;
+    }
+    for (int s = 0; s < K; ++s) {   // PreVote response
+      if (!PRESENT(PV_RESP_PRESENT, s)) continue;
+      int mt = IN(PV_RESP_TERM, s), req = IN(PV_RESP_REQ_TERM, s);
+      bool granted = IN(PV_RESP_GRANTED, s) != 0;
+      bool higher = mt > n.term;
+      if (higher) step_down(a, n, mt);
+      if (!higher && n.role == PRECANDIDATE && req == n.term + 1 && granted) {
+        n.votes |= 1u << s;
+        // A pre-vote quorum starts the real election here, in phase D.
+        if (vote_quorum(a, n, n.votes)) start_election(a, n, gid, i, ob);
+      }
+    }
+  }
+  if constexpr (TRANSFER) {
+    for (int s = 0; s < K; ++s) {   // TimeoutNow: campaign, skip PreVote
+      if (!PRESENT(TN_PRESENT, s)) continue;
+      int mt = IN(TN_TERM, s);
+      if (mt > n.term) step_down(a, n, mt);
+      // Not a candidate: it campaigned already (perhaps this tick) and a
+      // second start would write the RequestVote slots twice.
+      bool go = mt == n.term && n.role != LEADER && n.role != CANDIDATE;
+      if constexpr (RECONFIG) go = go && is_voter(current_voters(a, n), i);
+      if (go) start_election(a, n, gid, i, ob);
     }
   }
 #undef PRESENT
@@ -478,13 +675,92 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       }
     }
   }
+  if constexpr (TRANSFER) {
+    // First tick of a firing epoch: TimeoutNow to a hash-chosen target
+    // that is a current-config voter holding every committed entry and as
+    // caught up as any peer.
+    const uint32_t te = static_cast<uint32_t>(a.transfer_epoch);
+    if (is_leader && tu % te == 0 &&
+        hash_u32(a.seed, TAG_TRANSFER, gid, tu / te) < a.transfer_u32) {
+      int target = static_cast<int>(
+          hash_u32(a.seed, TAG_TRANSFER_NODE, gid, tu / te) %
+          static_cast<uint32_t>(K));
+      int top = n.match[0];
+      for (int p = 1; p < K; ++p) top = max(top, n.match[p]);
+      int mt = n.match[target];
+      bool ok = mt >= n.commit && mt == top && target != i;
+      if constexpr (RECONFIG)
+        ok = ok && is_voter(current_voters(a, n), target);
+      if (ok) {
+        OB(TN_PRESENT, target) = 1;
+        OB(TN_TERM, target) = n.term;
+      }
+    }
+  }
   int ee = n.ee + 1;
   bool timeout = !is_leader && ee >= n.deadline;
+  if constexpr (RECONFIG)   // non-voters never campaign
+    if (timeout) timeout = is_voter(current_voters(a, n), i);
   if (!is_leader) n.ee = ee;
-  n.le = is_leader ? 0 : n.le + 1;
-  if (timeout) start_election(a, n, gid, i, ob);
+  n.le = is_leader ? 0 : n.le + 1;   // the PreVote lease clock
+  if constexpr (PREVOTE) {
+    if (timeout) {   // pre-candidacy: no term bump
+      n.role = PRECANDIDATE;
+      n.leader_id = NO_VOTE;
+      n.votes = 1u << i;
+      reset_timer(a, n, gid, i);
+      if (vote_quorum(a, n, n.votes)) {   // one vote is a quorum
+        start_election(a, n, gid, i, ob);
+      } else {
+        int llt = term_at(n, n.last_index, L);
+        for (int p = 0; p < K; ++p) {
+          if (p == i) continue;
+          OB(PV_REQ_PRESENT, p) = 1;
+          OB(PV_REQ_TERM, p) = n.term + 1;
+          OB(PV_REQ_LLI, p) = n.last_index;
+          OB(PV_REQ_LLT, p) = llt;
+        }
+      }
+    }
+  } else if (timeout) {
+    start_election(a, n, gid, i, ob);
+  }
 
-  // ---- phase C: fire-hose command appends
+  // ---- phase C: scheduled read, scheduled membership change, fire-hose
+  const bool lead = n.role == LEADER;
+  if constexpr (READS) {
+    // ReadIndex at the start of phase C, at the pre-append commit index.
+    if (lead && tu % static_cast<uint32_t>(a.read_every) == 0 &&
+        n.sri < 0 &&
+        (n.commit == n.last_index || term_at(n, n.commit, L) == n.term)) {
+      n.sri = n.commit;
+      n.srr = t;
+    }
+  }
+  if constexpr (RECONFIG) {
+    // First tick of a firing epoch: toggle one hash-chosen node, once the
+    // last config entry is committed, the leader has committed in its
+    // term and enough voters remain.
+    const uint32_t re = static_cast<uint32_t>(a.reconfig_epoch);
+    if (lead && tu % re == 0 &&
+        hash_u32(a.seed, TAG_RECONFIG, gid, tu / re) < a.reconfig_u32) {
+      int target = static_cast<int>(
+          hash_u32(a.seed, TAG_RECONFIG_NODE, gid, tu / re) %
+          static_cast<uint32_t>(K));
+      int voters, cfg_index;
+      config_scan(a, n, INT_MAX_, voters, cfg_index);
+      int new_mask = voters ^ (1 << target);
+      int idx = n.last_index + 1;
+      if (__popc(static_cast<unsigned>(new_mask)) >= a.min_voters &&
+          cfg_index <= n.commit && term_at(n, n.commit, L) == n.term &&
+          idx - n.snap_index <= L) {
+        int sl = slot_of(idx, L);
+        n.lt[sl] = n.term;
+        n.lp[sl] = CONFIG_FLAG | new_mask;
+        n.last_index = idx;
+      }
+    }
+  }
   if (n.role == LEADER) {
     for (int c = 0; c < a.cmds; ++c) {
       int idx = n.last_index + 1;
@@ -497,27 +773,59 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     }
   }
 
-  // ---- phase A: commit advance, apply, compaction
-  int nc = commit_candidate(a, n, i);
+  // ---- phase A: commit advance, removed-leader step-down, apply,
+  // compaction, scheduled-read completion
+  int voters = a.full_mask, cfg_index = n.snap_index;
+  if constexpr (RECONFIG) config_scan(a, n, INT_MAX_, voters, cfg_index);
+  const int nc = RECONFIG ? commit_candidate_voters(a, n, i, voters)
+                          : commit_candidate(a, n, i);
   if (n.role == LEADER && nc > n.commit && term_at(n, nc, L) == n.term)
     n.commit = nc;
+  if constexpr (RECONFIG) {
+    if (n.role == LEADER && cfg_index <= n.commit && !is_voter(voters, i)) {
+      n.role = FOLLOWER;   // its removal is committed
+      n.leader_id = NO_VOTE;
+      n.votes = 0;
+      drop_reads(a, n);
+    }
+  }
   for (int st = 0; st < L && n.applied + 1 <= n.commit; ++st) {
     int idx = n.applied + 1;
     n.digest = digest_update(n.digest, idx, n.lp[slot_of(idx, L)]);
     n.applied = idx;
   }
   if (n.commit - n.snap_index >= a.compact) {
+    int snap_voters = a.full_mask;   // the committed config
+    if constexpr (RECONFIG)
+      config_scan(a, n, n.commit, snap_voters, cfg_index);
     n.snap_term = term_at(n, n.commit, L);
-    n.snap_voters = a.full_mask;
+    n.snap_voters = snap_voters;
     n.snap_index = n.commit;
     n.snap_digest = n.digest;
   }
+  if constexpr (READS) {
+    // A current-config voter majority (self included when a voter) acked
+    // at ticks >= reg + 2, and the read point is applied.
+    if (n.sri >= 0 && n.applied >= n.sri) {
+      const int rv = current_voters(a, n);   // after compaction
+      int acks = is_voter(rv, i) ? 1 : 0;
+      for (int p = 0; p < K; ++p)
+        if (p != i && is_voter(rv, p) && n.ack[p] >= n.srr + 2) ++acks;
+      if (acks >= (RECONFIG ? voter_majority(rv) : a.majority)) {
+        n.rdone += 1;
+        n.sri = -1;
+      }
+    }
+  }
 
   // ---- outbox (a dead sender's presence bits are erased) and freeze
-  for (int m = 0; m < N_MB; ++m)
+#undef OB
+  for (int r = 0; r < N_OB; ++r) {
+    const int m = mb_of_row(r);
     for (int p = 0; p < K; ++p)
       gr.x(F_MB0 + m, p * K + i) =
-          (is_presence(m) && !alive) ? 0 : ob[m][p];
+          (is_presence(m) && !alive) ? 0 : ob[r][p];
+  }
   if (!alive) {
     for (int l = 0; l < L; ++l) {
       gr.x(F_LOG_TERM, i * L + l) = gr.c(F_LOG_TERM, i * L + l);
@@ -551,6 +859,12 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
   gr.s(F_HEARTBEAT_ELAPSED, i) = n.hb;
   gr.s(F_DEADLINE, i) = n.deadline;
   gr.s(F_LEADER_ELAPSED, i) = n.le;
+  if constexpr (READS) {
+    for (int p = 0; p < K; ++p) gr.s(F_ACK_TIME, i * K + p) = n.ack[p];
+    gr.s(F_SCHED_READ_INDEX, i) = n.sri;
+    gr.s(F_SCHED_READ_REG, i) = n.srr;
+    gr.s(F_READS_DONE, i) = n.rdone;
+  }
 }
 
 // Restart edge: durable state survives, volatile state rewinds.
@@ -686,7 +1000,7 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
           if (!cut && !drop) keep |= 1u << s;
         }
       }
-      node_step(gr, i, keep, alive_i);
+      node_step<>(gr, i, keep, alive_i, a.t0 + tt);
     }
     alive_prev = alive;
 
@@ -719,9 +1033,11 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
 
 }  // namespace
 
-// Launch on `stream`. `offsets` (n_offsets == N_FIELDS ints) and `params`
-// (n_params == N_PARAMS int64s) are host arrays. Returns the
-// cudaGetLastError() of the launch (0 = launched), or -1 on a bad argument.
+// Launch on `stream`. `offsets` (n_offsets == N_FIELDS ints, -1 for a
+// mailbox slot the config does not carry) and `params` (n_params ==
+// N_PARAMS int64s) are host arrays. Returns the cudaGetLastError() of the
+// launch (0 = launched), -1 on a bad argument, -2 when the config's
+// feature flags are not this build's.
 extern "C" int fused_chunk_launch(const void* wire_in, void* wire_out,
                                   void* scratch, void* acc,
                                   const int* offsets, int n_offsets,
@@ -752,7 +1068,17 @@ extern "C" int fused_chunk_launch(const void* wire_in, void* wire_out,
   a.db_words = static_cast<int>(params[P_DB_WORDS]);
   a.t0 = static_cast<int>(params[P_T0]);
   a.n_ticks = static_cast<int>(params[P_N_TICKS]);
+  a.transfer_u32 = static_cast<uint32_t>(params[P_TRANSFER_U32]);
+  a.transfer_epoch = static_cast<int>(params[P_TRANSFER_EPOCH]);
+  a.reconfig_u32 = static_cast<uint32_t>(params[P_RECONFIG_U32]);
+  a.reconfig_epoch = static_cast<int>(params[P_RECONFIG_EPOCH]);
+  a.min_voters = static_cast<int>(params[P_MIN_VOTERS]);
+  a.read_every = static_cast<int>(params[P_READ_EVERY]);
   if (a.K < 1 || a.K > KMAX || a.L < 1 || a.L > LMAX || a.G < 1) return -1;
+  // The config's feature flags must be this build's.
+  if (params[P_PREVOTE] != PREVOTE || params[P_TRANSFER] != TRANSFER ||
+      params[P_RECONFIG] != RECONFIG || params[P_READS] != READS)
+    return -2;
   for (int f = 0; f < N_FIELDS; ++f) a.off[f] = offsets[f];
   const int threads = 128;
   const int blocks = (a.G + threads - 1) / threads;

@@ -1,14 +1,15 @@
 """The fused-chunk kernel: many whole ticks per launch, one CUDA thread
 per Raft group (csrc/fused_chunk.cu), with the JAX package's
 `sim/pkernel.py` API — `kinit` / `kstep` / `kfinish` / `prun`, and
-`kcommitted` / `kelections` / `khist` on the wire form.
+`kcommitted` / `kelections` / `khist` / `kreads` on the wire form.
 
 The wire form is a pair of tensors, `(wire, acc)`:
 - `wire`: int32 `[W, G]`, every State leaf plus the per-group metric
   lanes (committed, leaderless, safety), structure of arrays with the
   group axis minor (`_wire_rows`). Bools are 0/1, u32 digests their
   int32 bit pattern. The rings and the mailbox come last: the kernel
-  double-buffers that region across ticks.
+  double-buffers that region across ticks. The PreVote and TimeoutNow
+  mailbox slots ride the wire only when their features are on.
 - `acc`: int32 `[H + 2]`, the election-latency histogram, the election
   count and the longest completed streak, accumulated from zero since
   `kinit`; `kfinish` folds a caller's base metrics back in.
@@ -19,9 +20,11 @@ them once around the chunk loop, never per chunk.
 `kstep` launches the kernel for CUDA tensors; for CPU tensors it runs
 the plain version, `kstep_plain` (sim/run.py `run` over the same ticks,
 through the same wire boundary). There is no fallback from one to the
-other. The kernel is built with `nvcc` from the package's sources at
-first use (`load`), into a directory git ignores, and bound through
-ctypes.
+other. The four protocol features (PreVote, leadership transfer,
+membership change, scheduled reads) are compile-time flags of the
+kernel: each flag set is its own build of the one source (`load`), the
+all-off build carrying none of their code. A build runs `nvcc` at first
+use, into a directory git ignores, and is bound through ctypes.
 """
 
 from __future__ import annotations
@@ -42,13 +45,16 @@ from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.sim import run as run_mod
 from raft_tpu_torch.sim.run import Metrics
 from raft_tpu_torch.sim.state import (BOOL, I32, MB_FIELDS, Mailbox,
-                                      PerNode, State, mailbox_dtype)
+                                      PerNode, State, mailbox_dtype,
+                                      mb_fields)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = CSRC / "fused_chunk.cu"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The kernel's compile-time feature flags, in the order of its macros.
+FEATURES = ("prevote", "transfer", "reconfig", "reads")
 KMAX, LMAX = 8, 64   # the kernel's per-thread array bounds
 
 _PEER = ("votes", "next_index", "match_index", "ack_time")
@@ -56,14 +62,30 @@ _RING = ("log_term", "log_payload")
 _U32_FIELDS = ("snap_digest", "digest", "is_req_snap_digest")
 # Wire fields in the order of the kernel's `Field` enum: node leaves
 # (rings excluded), alive_prev, group_id, the metric lanes, then the
-# double-buffered region (rings, mailbox).
+# double-buffered region (rings, mailbox). A universe's wire holds the
+# mailbox slots it carries (`wire_fields`).
 _NODE_STATIC = tuple(f for f in PerNode._fields[:26] if f not in _RING)
-WIRE_FIELDS = (_NODE_STATIC
-               + ("alive_prev", "group_id", "committed", "leaderless",
-                  "safety")
-               + _RING + MB_FIELDS)
+_HEAD = (_NODE_STATIC
+         + ("alive_prev", "group_id", "committed", "leaderless", "safety")
+         + _RING)
+WIRE_FIELDS = _HEAD + MB_FIELDS
 _DB_FIRST = "log_term"
 _METRIC_LANES = ("committed", "leaderless", "safety")
+
+
+def wire_fields(cfg: RaftConfig) -> tuple:
+    return _HEAD + mb_fields(cfg)
+
+
+def features(cfg: RaftConfig) -> tuple:
+    """The kernel's feature flags for a universe, in `FEATURES` order."""
+    return (bool(cfg.prevote), cfg.transfer_u32 != 0,
+            cfg.reconfig_u32 != 0, cfg.read_every != 0)
+
+
+def flag_name(flags: tuple) -> str:
+    """A flag set's name: the features it turns on, or "base"."""
+    return "+".join(f for f, on in zip(FEATURES, flags) if on) or "base"
 
 
 def _shape(cfg: RaftConfig, field: str) -> tuple:
@@ -85,10 +107,15 @@ def _rows(cfg: RaftConfig, field: str) -> int:
 
 def _wire_rows(cfg: RaftConfig):
     """(offsets, n_words, db_start): each field's first row, in
-    WIRE_FIELDS order. Offsets of the double-buffered fields are
-    relative to `db_start`."""
+    WIRE_FIELDS order, -1 for a mailbox slot the universe does not
+    carry. Offsets of the double-buffered fields are relative to
+    `db_start`."""
+    on = set(wire_fields(cfg))
     offsets, at, db_start = [], 0, None
     for f in WIRE_FIELDS:
+        if f not in on:
+            offsets.append(-1)
+            continue
         if f == _DB_FIRST:
             db_start = at
         offsets.append(at - (db_start or 0) if db_start is not None else at)
@@ -121,7 +148,7 @@ def _encode(cfg: RaftConfig, st: State, m: Metrics):
                   committed=m.committed, leaderless=m.leaderless,
                   safety=m.safety)
     wire = torch.cat([_to_i32(leaves[f]).reshape(g, -1).T
-                      for f in WIRE_FIELDS]).contiguous()
+                      for f in wire_fields(cfg)]).contiguous()
     acc = torch.cat([m.hist, m.elections.reshape(1),
                      m.max_latency.reshape(1)]).to(I32)
     return wire, acc
@@ -132,7 +159,7 @@ def _decode(cfg: RaftConfig, leaves):
     wire, acc = leaves
     g = wire.shape[1]
     vals, at = {}, 0
-    for f in WIRE_FIELDS:
+    for f in wire_fields(cfg):
         n = _rows(cfg, f)
         vals[f] = wire[at:at + n].T.reshape((g,) + _shape(cfg, f))
         at += n
@@ -142,7 +169,7 @@ def _decode(cfg: RaftConfig, leaves):
     nodes = PerNode(**{f: _from_i32(vals[f], node_dt[f])
                        for f in PerNode._fields[:26]})
     mailbox = Mailbox(**{f: _from_i32(vals[f], mailbox_dtype(f))
-                         for f in MB_FIELDS})
+                         for f in mb_fields(cfg)})
     st = State(nodes=nodes, mailbox=mailbox,
                alive_prev=vals["alive_prev"] != 0,
                group_id=vals["group_id"].clone())
@@ -189,6 +216,13 @@ def kcommitted(cfg: RaftConfig, leaves, g: int) -> int:
     """Total committed rounds straight from the wire (int64 sum)."""
     off = _wire_rows(cfg)[0][WIRE_FIELDS.index("committed")]
     return int(leaves[0][off, :g].to(torch.int64).sum())
+
+
+def kreads(cfg: RaftConfig, leaves, g: int) -> int:
+    """Total completed scheduled reads (the sum of the per-node
+    `reads_done` counters) straight from the wire (int64 sum)."""
+    off = _wire_rows(cfg)[0][WIRE_FIELDS.index("reads_done")]
+    return int(leaves[0][off:off + cfg.k, :g].to(torch.int64).sum())
 
 
 def kelections(cfg: RaftConfig, leaves, g: int) -> int:
@@ -244,7 +278,9 @@ def _params(cfg: RaftConfig, g: int, hist: int, t0: int, n_ticks: int):
         cfg.compact_every, cfg.cmds_per_tick, cfg.crash_u32, cfg.crash_epoch,
         cfg.partition_u32, cfg.partition_epoch, cfg.drop_u32, cfg.majority,
         cfg.full_mask, hist, n_words, db_start, n_words - db_start,
-        t0, n_ticks], dtype=np.int64)
+        t0, n_ticks, *features(cfg), cfg.transfer_u32, cfg.transfer_epoch,
+        cfg.reconfig_u32, cfg.reconfig_epoch, cfg.effective_min_voters,
+        cfg.read_every], dtype=np.int64)
 
 
 def _nvcc() -> str:
@@ -257,27 +293,57 @@ def _nvcc() -> str:
                        "from csrc/ on a machine with the CUDA toolkit")
 
 
-@functools.cache
-def load() -> ctypes.CDLL:
-    """Compile the kernel (once, cached on disk by source hash) and load
-    it, once per process."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"fused_chunk_{tag[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _defines(flags: tuple) -> list:
+    return [f"-DFC_{f.upper()}={int(on)}" for f, on in zip(FEATURES, flags)]
+
+
+def _so_path(flags: tuple) -> Path:
+    """The build of one flag set, cached on disk by the source, the
+    nvcc flags and the flag set."""
+    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(
+        NVCC_FLAGS + tuple(_defines(flags))).encode()).hexdigest()
+    return BUILD_DIR / f"fused_chunk_{flag_name(flags)}_{tag[:16]}.so"
+
+
+def build(flag_sets) -> dict:
+    """Compile every flag set not yet on disk, one `nvcc` per set, all
+    started together. Returns {flag set: ptxas report}: registers, frame
+    and spills of each build, as `nvcc -Xptxas -v` printed them."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for flags in dict.fromkeys(tuple(f) for f in flag_sets):
+        so = _so_path(flags)
+        if so.exists():
+            continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        try:
-            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                           check=True, capture_output=True, text=True)
+        procs[flags] = (so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *_defines(flags), "-o", tmp, str(SOURCE)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for flags, (so, tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode == 0:
+            so.with_suffix(".ptxas.txt").write_text(log)
             os.replace(tmp, so)
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{e.stderr}") from e
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(so))
+        else:
+            failed.append(f"nvcc failed on {SOURCE} ({flag_name(flags)}):"
+                          f"\n{log}")
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {tuple(f): _so_path(tuple(f)).with_suffix(".ptxas.txt")
+            .read_text() for f in flag_sets}
+
+
+@functools.cache
+def load(flags: tuple) -> ctypes.CDLL:
+    """The kernel built for one flag set (compiled at first use), loaded
+    once per process."""
+    build([flags])
+    lib = ctypes.CDLL(str(_so_path(flags)))
     fn = lib.fused_chunk_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                                            ctypes.c_int, ctypes.c_void_p]
@@ -288,8 +354,9 @@ def load() -> ctypes.CDLL:
 def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
     """One launch: `n_ticks` ticks from absolute tick `t0`. Returns a new
     (wire, acc) pair; the inputs are left as they were. CUDA tensors
-    launch the kernel on the current stream (counted in
-    `kstep.launches`); CPU tensors run `kstep_plain`."""
+    launch the kernel built for the universe's flag set on the current
+    stream (counted in `kstep.launches`); CPU tensors run
+    `kstep_plain`."""
     _check_leaves(cfg, leaves)
     wire, acc = leaves
     if wire.device.type == "cpu":
@@ -301,7 +368,8 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
                          f"{LMAX}, not k={cfg.k}, log_cap={cfg.log_cap}")
     if n_ticks < 0 or t0 < 0 or t0 + n_ticks >= 2 ** 31:
         raise ValueError("ticks must lie in [0, 2**31)")
-    lib = load()
+    flags = features(cfg)
+    lib = load(flags)
     g = wire.shape[1]
     offsets, n_words, db_start = _wire_rows(cfg)
     out = torch.empty_like(wire)

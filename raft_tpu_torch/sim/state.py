@@ -65,12 +65,12 @@ class PerNode(NamedTuple):
     heartbeat_elapsed: torch.Tensor  # i32
     deadline: torch.Tensor     # i32
     leader_elapsed: torch.Tensor     # i32 — PreVote lease clock
-    # Scheduled-read state: carried for a stable layout; only the
-    # restart edge writes it while reads are not ported.
-    ack_time: torch.Tensor           # i32[K]
-    sched_read_index: torch.Tensor   # i32
-    sched_read_reg: torch.Tensor     # i32
-    reads_done: torch.Tensor         # i32
+    # Scheduled-read state; written only when `cfg.read_every` (and by
+    # the restart edge).
+    ack_time: torch.Tensor           # i32[K] — last current-term resp tick
+    sched_read_index: torch.Tensor   # i32 — read point, -1 = none
+    sched_read_reg: torch.Tensor     # i32 — registration tick
+    reads_done: torch.Tensor         # i32 — completed linearizable reads
     # Session dedup tables: absent (None) while clients are not ported.
     session_seq: torch.Tensor | None = None
     snap_session_seq: torch.Tensor | None = None
@@ -114,18 +114,20 @@ class Mailbox(NamedTuple):
     is_resp_term: torch.Tensor     # i32
     is_resp_match: torch.Tensor    # i32
 
-    # PreVote / TimeoutNow / session-table slots: absent (None) while
-    # those features are not ported.
-    pv_req_present: torch.Tensor | None = None
-    pv_req_term: torch.Tensor | None = None
-    pv_req_lli: torch.Tensor | None = None
-    pv_req_llt: torch.Tensor | None = None
-    pv_resp_present: torch.Tensor | None = None
-    pv_resp_term: torch.Tensor | None = None
-    pv_resp_req_term: torch.Tensor | None = None
-    pv_resp_granted: torch.Tensor | None = None
-    tn_present: torch.Tensor | None = None
-    tn_term: torch.Tensor | None = None
+    # PreVote slots: present only when `cfg.prevote` (None otherwise).
+    pv_req_present: torch.Tensor | None = None   # bool
+    pv_req_term: torch.Tensor | None = None      # i32 — proposed term
+    pv_req_lli: torch.Tensor | None = None       # i32
+    pv_req_llt: torch.Tensor | None = None       # i32
+    pv_resp_present: torch.Tensor | None = None  # bool
+    pv_resp_term: torch.Tensor | None = None     # i32 — responder's term
+    pv_resp_req_term: torch.Tensor | None = None  # i32 — echoed proposal
+    pv_resp_granted: torch.Tensor | None = None  # bool
+    # TimeoutNow (leadership transfer): present only when the transfer
+    # schedule is on.
+    tn_present: torch.Tensor | None = None       # bool
+    tn_term: torch.Tensor | None = None          # i32
+    # Session-table payload of InstallSnapshot: not ported (clients).
     is_req_snap_sessions: torch.Tensor | None = None
 
 
@@ -139,11 +141,28 @@ class State(NamedTuple):
 
 MB_BOOL = ("rv_req_present", "rv_resp_present", "rv_resp_granted",
            "ae_req_present", "ae_resp_present", "ae_resp_success",
-           "is_req_present", "is_resp_present")
+           "is_req_present", "is_resp_present", "pv_req_present",
+           "pv_resp_present", "pv_resp_granted", "tn_present")
 MB_U32 = ("is_req_snap_digest",)
-MB_FIELDS = Mailbox._fields[:26]      # the fields this slice carries
+MB_BASE = Mailbox._fields[:26]   # always carried
+MB_PV = Mailbox._fields[26:34]   # carried when cfg.prevote
+MB_TN = Mailbox._fields[34:36]   # carried when cfg.transfer_u32
+MB_FIELDS = MB_BASE + MB_PV + MB_TN   # every slot the port can carry
 PRESENT_FIELDS = ("rv_req_present", "rv_resp_present", "ae_req_present",
-                  "ae_resp_present", "is_req_present", "is_resp_present")
+                  "ae_resp_present", "is_req_present", "is_resp_present",
+                  "pv_req_present", "pv_resp_present", "tn_present")
+
+
+def mb_fields(cfg: RaftConfig) -> tuple:
+    """The mailbox slots a universe carries, in Mailbox order."""
+    return (MB_BASE + (MB_PV if cfg.prevote else ())
+            + (MB_TN if cfg.transfer_u32 else ()))
+
+
+def present_fields(cfg: RaftConfig) -> tuple:
+    """The occupancy bits a universe carries."""
+    on = set(mb_fields(cfg))
+    return tuple(f for f in PRESENT_FIELDS if f in on)
 
 
 def mailbox_dtype(field: str) -> torch.dtype:
@@ -152,11 +171,13 @@ def mailbox_dtype(field: str) -> torch.dtype:
     return U32 if field in MB_U32 else I32
 
 
-def empty_mailbox(lead_shape: tuple, device) -> Mailbox:
-    """Zero mailbox with the given leading shape (`(g, k, k)` in flight)."""
+def empty_mailbox(cfg: RaftConfig, lead_shape: tuple, device) -> Mailbox:
+    """Zero mailbox with the given leading shape (`(g, k, k)` in flight);
+    the PreVote and TimeoutNow slots exist only when their features are
+    on (None otherwise)."""
     return Mailbox(**{f: torch.zeros(lead_shape, dtype=mailbox_dtype(f),
                                      device=device)
-                      for f in MB_FIELDS})
+                      for f in mb_fields(cfg)})
 
 
 def init(cfg: RaftConfig, n_groups: int | None = None,
@@ -193,7 +214,7 @@ def init(cfg: RaftConfig, n_groups: int | None = None,
         ack_time=full(-1, k), sched_read_index=full(-1),
         sched_read_reg=z(I32), reads_done=z(I32),
     )
-    return State(nodes=nodes, mailbox=empty_mailbox((g, k, k), device),
+    return State(nodes=nodes, mailbox=empty_mailbox(cfg, (g, k, k), device),
                  alive_prev=torch.ones((g, k), dtype=BOOL, device=device),
                  group_id=torch.arange(g, dtype=I32, device=device))
 

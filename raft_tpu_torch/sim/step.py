@@ -20,20 +20,25 @@ masks occupancy bits, dead nodes' state is frozen wholesale and their
 outbox erased (their in-flight mail survives), and the dead->alive edge
 rewinds volatile state.
 
-Only the features of this slice exist here (config.py refuses the
-rest): RequestVote, AppendEntries, InstallSnapshot, fire-hose commands,
-commit/apply/compaction, crash/partition/drop faults.
+The features here (config.py refuses the rest): RequestVote,
+AppendEntries, InstallSnapshot, fire-hose commands, commit/apply/
+compaction, crash/partition/drop faults, and four protocol features,
+each gated statically on its config knob as the JAX package gates it —
+PreVote (`prevote`), leadership transfer (`transfer_prob`), single-server
+membership change (`reconfig_prob`) and scheduled ReadIndex reads
+(`read_every`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from raft_tpu_torch.config import RaftConfig
-from raft_tpu_torch.core.node import CANDIDATE, FOLLOWER, LEADER, NO_VOTE
+from raft_tpu_torch.config import CONFIG_FLAG, RaftConfig
+from raft_tpu_torch.core.node import (CANDIDATE, FOLLOWER, LEADER, NO_VOTE,
+                                      PRECANDIDATE)
 from raft_tpu_torch.ops import quorum
-from raft_tpu_torch.sim.state import (I32, PRESENT_FIELDS, Mailbox, PerNode,
-                                      State, empty_mailbox)
+from raft_tpu_torch.sim.state import (I32, Mailbox, PerNode, State,
+                                      empty_mailbox, present_fields)
 from raft_tpu_torch.utils import trng
 
 W = torch.where
@@ -91,8 +96,48 @@ def _abs_index(cfg, ns: PerNode):
                                                off + cfg.log_cap)
 
 
-def _vote_quorum(cfg, votes):
-    return quorum.vote_count(votes) >= cfg.majority
+def _lanes(cfg, ref):
+    return torch.arange(cfg.k, dtype=I32, device=ref.device)
+
+
+# -------------------------------------------------------- membership config
+
+
+def _config_scan(cfg, ns: PerNode, through=None):
+    """(voters, cfg_index): the membership entry with the highest
+    absolute index <= `through` (default: the whole log) in the live
+    window, else the snapshot's config. Derived, never stored:
+    truncation reverts membership. Callers gate on `cfg.reconfig_u32`:
+    without the schedule no membership entry can enter a log."""
+    absidx = _abs_index(cfg, ns)
+    lim = ns.last_index if through is None else torch.minimum(
+        ns.last_index, through)
+    is_cfg = (((ns.log_payload & CONFIG_FLAG) != 0)
+              & (absidx <= lim.unsqueeze(-1)))
+    best = W(is_cfg, absidx, 0).amax(-1)   # 0 == none (indices are >= 1)
+    found = best > 0
+    mask_at = W(is_cfg & (absidx == best.unsqueeze(-1)), ns.log_payload,
+                0).sum(-1, dtype=I32) & cfg.full_mask
+    return W(found, mask_at, ns.snap_voters), W(found, best, ns.snap_index)
+
+
+def _committed_voters(cfg, ns: PerNode, commit):
+    if cfg.reconfig_u32 == 0:
+        return cfg.full_mask
+    return _config_scan(cfg, ns, commit)[0]
+
+
+def _is_voter(voters, node):
+    return ((voters >> node) & 1) == 1
+
+
+def _vote_quorum(cfg, ns: PerNode, votes):
+    """Granted votes from current-config voters reach that config's
+    majority (the full set's, with reconfig off)."""
+    if cfg.reconfig_u32 == 0:
+        return quorum.vote_count(votes) >= cfg.majority
+    voters, _ = _config_scan(cfg, ns)
+    return quorum.vote_won(votes, voters, cfg.k)
 
 
 # -------------------------------------------------------------- transitions
@@ -109,20 +154,33 @@ def _reset_timer(cfg, ns: PerNode, g, i, cond):
     )
 
 
+def _drop_reads(cfg, ns: PerNode, cond):
+    """The pending scheduled read aborts and the ack evidence goes stale
+    (reads off: nothing to drop)."""
+    if not cfg.read_every:
+        return ns
+    return ns._replace(
+        ack_time=W(cond.unsqueeze(-1), -1, ns.ack_time),
+        sched_read_index=W(cond, -1, ns.sched_read_index),
+    )
+
+
 def _step_down(cfg, ns: PerNode, new_term, cond):
     """Adopt term, follower, no timer reset."""
-    return ns._replace(
+    ns = ns._replace(
         term=W(cond, new_term, ns.term),
         role=W(cond, FOLLOWER, ns.role),
         voted_for=W(cond, NO_VOTE, ns.voted_for),
         leader_id=W(cond, NO_VOTE, ns.leader_id),
         votes=ns.votes & ~cond.unsqueeze(-1),
     )
+    return _drop_reads(cfg, ns, cond)
 
 
 def _become_leader(cfg, ns: PerNode, i, cond):
     """Leadership, including the takeover re-proposal (DESIGN.md §2a):
     the top uncommitted entry takes the new term in place."""
+    ns = _drop_reads(cfg, ns, cond)
     c1 = cond.unsqueeze(-1)
     ns = ns._replace(
         role=W(cond, LEADER, ns.role),
@@ -179,17 +237,17 @@ def _on_rv_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     votes = ns.votes.clone()
     votes[..., src] |= cont
     ns = ns._replace(votes=votes)
-    won = cont & _vote_quorum(cfg, votes)
+    won = cont & _vote_quorum(cfg, ns, votes)
     return _become_leader(cfg, ns, i, won)
 
 
 def _on_ae_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     """The log-matching workhorse. Entries are pulled from the sender's
-    ring as of the end of the previous tick (`gl`, the group's [G, K, L]
-    rings): the range (prev, prev + n] cannot change between the send
-    and this delivery. Reads of the receiver's own ring see this tick's
-    earlier handlers' writes (sequential delivery)."""
-    glog_t, glog_p = gl
+    ring as of the end of the previous tick (`gl`: the group's [G, K, L]
+    rings, and the tick): the range (prev, prev + n] cannot change
+    between the send and this delivery. Reads of the receiver's own ring
+    see this tick's earlier handlers' writes (sequential delivery)."""
+    glog_t, glog_p, _ = gl
     present = ib.ae_req_present[:, :, src]
     m_term = ib.ae_req_term[:, :, src]
     m_prev = ib.ae_req_prev_index[:, :, src]
@@ -270,6 +328,15 @@ def _set_peer(vec, src: int, val):
     return vec
 
 
+def _stamp_ack(cfg, ns, src: int, cont, t):
+    """Any current-term response is ReadIndex deference evidence: stamp
+    its arrival tick, success or not."""
+    if not cfg.read_every:
+        return ns
+    return ns._replace(ack_time=_set_peer(
+        ns.ack_time, src, W(cont, t, ns.ack_time[..., src])))
+
+
 def _on_ae_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     present = ib.ae_resp_present[:, :, src]
     m_term = ib.ae_resp_term[:, :, src]
@@ -278,6 +345,7 @@ def _on_ae_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     higher = present & (m_term > ns.term)
     ns = _step_down(cfg, ns, m_term, higher)
     cont = present & ~higher & (ns.role == LEADER) & (m_term == ns.term)
+    ns = _stamp_ack(cfg, ns, src, cont, gl[2])
     succ = cont & m_success
     fail = cont & ~m_success
     mi = ns.match_index[..., src]
@@ -331,6 +399,7 @@ def _on_is_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     higher = present & (m_term > ns.term)
     ns = _step_down(cfg, ns, m_term, higher)
     cont = present & ~higher & (ns.role == LEADER) & (m_term == ns.term)
+    ns = _stamp_ack(cfg, ns, src, cont, gl[2])
     mi = ns.match_index[..., src]
     new_match = torch.maximum(mi, m_match)
     return ns._replace(
@@ -339,23 +408,20 @@ def _on_is_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
                              W(cont, new_match + 1, ns.next_index[..., src])))
 
 
-_HANDLERS = (_on_rv_req, _on_rv_resp, _on_ae_req, _on_ae_resp,
-             _on_is_req, _on_is_resp)   # canonical rpc type order
-
-
 def _start_election_masked(cfg, ns, out, g, i, cond):
     """Term bump, candidacy, fresh timer draw, instant single-voter win,
-    RequestVote broadcast."""
-    lanes = torch.arange(cfg.k, dtype=I32, device=cond.device)
+    RequestVote broadcast. Shared by phase T, the pre-vote quorum and
+    TimeoutNow (both in phase D)."""
     ns = ns._replace(
         term=W(cond, ns.term + 1, ns.term),
         role=W(cond, CANDIDATE, ns.role),
         voted_for=W(cond, i, ns.voted_for),
         leader_id=W(cond, NO_VOTE, ns.leader_id),
-        votes=W(cond.unsqueeze(-1), lanes == i.unsqueeze(-1), ns.votes),
+        votes=W(cond.unsqueeze(-1), _lanes(cfg, cond) == i.unsqueeze(-1),
+                ns.votes),
     )
     ns = _reset_timer(cfg, ns, g, i, cond)
-    won = cond & _vote_quorum(cfg, ns.votes)
+    won = cond & _vote_quorum(cfg, ns, ns.votes)
     ns = _become_leader(cfg, ns, i, won)
     llt = _last_log_term(cfg, ns)
     for p in range(cfg.k):
@@ -367,11 +433,74 @@ def _start_election_masked(cfg, ns, out, g, i, cond):
     return ns
 
 
+def _on_pv_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    """Non-binding pre-vote grant: proposed term ahead, log up to date,
+    not the leader, lease expired. No term adoption, no voted_for, no
+    timer reset."""
+    present = ib.pv_req_present[:, :, src]
+    m_term = ib.pv_req_term[:, :, src]
+    m_lli = ib.pv_req_lli[:, :, src]
+    m_llt = ib.pv_req_llt[:, :, src]
+    llt = _last_log_term(cfg, ns)
+    log_ok = (m_llt > llt) | ((m_llt == llt) & (m_lli >= ns.last_index))
+    grant = (present & (m_term > ns.term) & log_ok & (ns.role != LEADER)
+             & (ns.leader_elapsed >= cfg.election_min))
+    _put(out, "pv_resp_present", src, present, True)
+    _put(out, "pv_resp_term", src, present, ns.term)
+    _put(out, "pv_resp_req_term", src, present, m_term)
+    _put(out, "pv_resp_granted", src, present, grant)
+    return ns
+
+
+def _on_pv_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    """Tally pre-votes; a quorum starts the real election (term bump and
+    RequestVote broadcast) right here in phase D."""
+    present = ib.pv_resp_present[:, :, src]
+    m_term = ib.pv_resp_term[:, :, src]
+    m_req = ib.pv_resp_req_term[:, :, src]
+    m_granted = ib.pv_resp_granted[:, :, src]
+    higher = present & (m_term > ns.term)
+    ns = _step_down(cfg, ns, m_term, higher)
+    cont = (present & ~higher & (ns.role == PRECANDIDATE)
+            & (m_req == ns.term + 1) & m_granted)
+    votes = ns.votes.clone()
+    votes[..., src] |= cont
+    ns = ns._replace(votes=votes)
+    won_pre = cont & _vote_quorum(cfg, ns, votes)
+    return _start_election_masked(cfg, ns, out, g, i, won_pre)
+
+
+def _on_tn_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
+    """TimeoutNow: campaign at once, bypassing PreVote. Followers and
+    pre-candidates only: a candidate already campaigned (perhaps this
+    very tick, on a pre-vote quorum), and a second start would write the
+    RequestVote slots twice."""
+    present = ib.tn_present[:, :, src]
+    m_term = ib.tn_term[:, :, src]
+    ns = _step_down(cfg, ns, m_term, present & (m_term > ns.term))
+    cond = (present & (m_term == ns.term)
+            & (ns.role != LEADER) & (ns.role != CANDIDATE))
+    if cfg.reconfig_u32:
+        cond = cond & _is_voter(_config_scan(cfg, ns)[0], i)
+    return _start_election_masked(cfg, ns, out, g, i, cond)
+
+
+def _handlers(cfg):
+    """The handlers in canonical rpc type order (PreVote and TimeoutNow
+    last), those of features that are off left out."""
+    return ((_on_rv_req, _on_rv_resp, _on_ae_req, _on_ae_resp, _on_is_req,
+             _on_is_resp)
+            + ((_on_pv_req, _on_pv_resp) if cfg.prevote else ())
+            + ((_on_tn_req,) if cfg.transfer_u32 else ()))
+
+
 # ----------------------------------------------------------------- phase T
 
 
-def _phase_t(cfg, ns, out, g, i):
-    """Heartbeat/replication broadcast, then the election timeout."""
+def _phase_t(cfg, ns, out, g, i, t: int):
+    """Heartbeat/replication broadcast, the scheduled leadership
+    transfer, then the election timeout (through PreVote when on). `t`
+    is the absolute tick (the transfer schedule hashes it)."""
     is_leader = ns.role == LEADER
     hb = ns.heartbeat_elapsed + 1
     fire = is_leader & (hb >= cfg.heartbeat_every)
@@ -399,21 +528,97 @@ def _phase_t(cfg, ns, out, g, i):
         _put(out, "ae_req_n", p, use_ae, n)
         _put(out, "ae_req_commit", p, use_ae, ns.commit)
 
+    if cfg.transfer_u32 and t % cfg.transfer_epoch == 0:
+        # First tick of a firing epoch: TimeoutNow to a hash-chosen
+        # target that is a current-config voter holding every committed
+        # entry and as caught up as any peer (the leader's own match slot
+        # is always 0).
+        epoch = t // cfg.transfer_epoch
+        attempts = is_leader & trng.transfer_fires(cfg.seed, g, epoch,
+                                                   cfg.transfer_u32)
+        target = trng.transfer_target(cfg.seed, g, epoch, cfg.k)
+        mt = _lget(ns.match_index, target)
+        caught_up = (mt >= ns.commit) & (mt == ns.match_index.amax(-1))
+        ok = attempts & caught_up & (target != i)
+        if cfg.reconfig_u32:
+            ok = ok & _is_voter(_config_scan(cfg, ns)[0], target)
+        for p in range(cfg.k):
+            send = ok & (target == p)
+            _put(out, "tn_present", p, send, True)
+            _put(out, "tn_term", p, send, ns.term)
+
+    # Election timeout: non-leaders that are current-config voters. The
+    # PreVote lease clock: leaders zero it, everyone else counts up.
     ee = ns.election_elapsed + 1
     timeout = ~is_leader & (ee >= ns.deadline)
+    if cfg.reconfig_u32:
+        timeout = timeout & _is_voter(_config_scan(cfg, ns)[0], i)
     ns = ns._replace(
         election_elapsed=W(is_leader, ns.election_elapsed, ee),
         leader_elapsed=W(is_leader, 0, ns.leader_elapsed + 1))
-    return _start_election_masked(cfg, ns, out, g, i, timeout)
+    if not cfg.prevote:
+        return _start_election_masked(cfg, ns, out, g, i, timeout)
+    # Pre-candidacy, no term bump; a config where one vote is a quorum
+    # skips straight to the real election (with its second deadline
+    # draw).
+    ns = ns._replace(
+        role=W(timeout, PRECANDIDATE, ns.role),
+        leader_id=W(timeout, NO_VOTE, ns.leader_id),
+        votes=W(timeout.unsqueeze(-1), _lanes(cfg, i) == i.unsqueeze(-1),
+                ns.votes),
+    )
+    ns = _reset_timer(cfg, ns, g, i, timeout)
+    skip = timeout & _vote_quorum(cfg, ns, ns.votes)
+    ns = _start_election_masked(cfg, ns, out, g, i, skip)
+    llt = _last_log_term(cfg, ns)
+    for p in range(cfg.k):
+        send = timeout & ~skip & (i != p)
+        _put(out, "pv_req_present", p, send, True)
+        _put(out, "pv_req_term", p, send, ns.term + 1)
+        _put(out, "pv_req_lli", p, send, ns.last_index)
+        _put(out, "pv_req_llt", p, send, llt)
+    return ns
 
 
 # ----------------------------------------------------------------- phase C
 
 
-def _phase_c(cfg, ns, g):
-    """Fire-hose command appends by every node that believes itself
+def _phase_c(cfg, ns, g, t: int):
+    """Scheduled read registration, the scheduled membership proposal,
+    then fire-hose command appends, by every node that believes itself
     leader, stopping at a full window."""
     lead = ns.role == LEADER
+    if cfg.read_every and t % cfg.read_every == 0:
+        # ReadIndex at the start of phase C: the read point is the
+        # pre-append commit index, registered once the leader has
+        # committed an entry of its own term (or holds nothing past it).
+        gate = ((ns.commit == ns.last_index)
+                | (_term_at(cfg, ns, ns.commit) == ns.term))
+        reg = lead & (ns.sched_read_index < 0) & gate
+        ns = ns._replace(
+            sched_read_index=W(reg, ns.commit, ns.sched_read_index),
+            sched_read_reg=W(reg, t, ns.sched_read_reg))
+    if cfg.reconfig_u32 and t % cfg.reconfig_epoch == 0:
+        # First tick of a firing epoch: toggle one hash-chosen node's
+        # membership, once the last config entry is committed, the
+        # leader has committed in its term and enough voters remain.
+        epoch = t // cfg.reconfig_epoch
+        fires = trng.reconfig_fires(cfg.seed, g, epoch, cfg.reconfig_u32)
+        target = trng.reconfig_target(cfg.seed, g, epoch, cfg.k)
+        voters, cfg_index = _config_scan(cfg, ns)
+        new_mask = voters ^ torch.bitwise_left_shift(
+            torch.ones_like(target), target)
+        gate = ((quorum.popcount(new_mask) >= cfg.effective_min_voters)
+                & (cfg_index <= ns.commit)
+                & (_term_at(cfg, ns, ns.commit) == ns.term))
+        idx = ns.last_index + 1
+        room = (idx - ns.snap_index) <= cfg.log_cap
+        do = lead & fires & gate & room
+        s = _slot(cfg, idx)
+        ns = ns._replace(
+            log_term=_lset(ns.log_term, s, do, ns.term),
+            log_payload=_lset(ns.log_payload, s, do, CONFIG_FLAG | new_mask),
+            last_index=W(do, idx, ns.last_index))
     last_index = ns.last_index
     log_term, log_payload = ns.log_term, ns.log_payload
     stopped = torch.zeros_like(lead)
@@ -435,14 +640,30 @@ def _phase_c(cfg, ns, g):
 
 
 def _phase_a(cfg, ns, i):
-    """Commit advance, apply (the digest chain), compaction."""
-    n = quorum.commit_candidate(ns.match_index, ns.last_index, i,
-                                cfg.k, cfg.majority)
+    """Voters-aware commit advance, removed-leader step-down, apply (the
+    digest chain), compaction, scheduled-read completion."""
+    if cfg.reconfig_u32 == 0:
+        n = quorum.commit_candidate(ns.match_index, ns.last_index, i,
+                                    cfg.k, cfg.majority)
+    else:
+        voters, cfg_index = _config_scan(cfg, ns)
+        n = quorum.commit_candidate_voters(ns.match_index, ns.last_index,
+                                           i, voters, cfg.k)
     # Current-term entries only; n > commit >= snap_index makes the
-    # term read valid under the mask.
+    # term read valid under the mask (n == -1 without voters fails it).
     advance = ((ns.role == LEADER) & (n > ns.commit)
                & (_term_at(cfg, ns, n) == ns.term))
     commit = W(advance, n, ns.commit)
+
+    if cfg.reconfig_u32:
+        # A removed leader steps down once its removal is committed.
+        demote = ((ns.role == LEADER) & (cfg_index <= commit)
+                  & ~_is_voter(voters, i))
+        ns = ns._replace(
+            role=W(demote, FOLLOWER, ns.role),
+            leader_id=W(demote, NO_VOTE, ns.leader_id),
+            votes=ns.votes & ~demote.unsqueeze(-1))
+        ns = _drop_reads(cfg, ns, demote)
 
     # Apply: commit - applied <= L by the window invariant. Steps past
     # the batch's largest gap are no-ops, so the loop stops there.
@@ -456,30 +677,54 @@ def _phase_a(cfg, ns, i):
         applied = W(act, idx, applied)
 
     compact = (commit - ns.snap_index) >= cfg.compact_every
-    return ns._replace(
+    ns = ns._replace(
         commit=commit, applied=applied, digest=digest,
         snap_term=W(compact, _term_at(cfg, ns, commit), ns.snap_term),
-        snap_voters=W(compact, cfg.full_mask, ns.snap_voters),
+        snap_voters=W(compact, _committed_voters(cfg, ns, commit),
+                      ns.snap_voters),
         snap_index=W(compact, commit, ns.snap_index),
         snap_digest=W(compact, digest, ns.snap_digest),
     )
+    if not cfg.read_every:
+        return ns
+    # Scheduled-read completion: a current-config voter majority (self
+    # included when a voter) acked at ticks >= reg + 2, and the state
+    # machine has applied through the read point.
+    lanes = _lanes(cfg, i)
+    recent = ns.ack_time >= (ns.sched_read_reg + 2).unsqueeze(-1)
+    if cfg.reconfig_u32 == 0:
+        voter_lane = torch.ones_like(recent)
+        self_voter, maj = 1, cfg.majority
+    else:
+        voters2, _ = _config_scan(cfg, ns)
+        voter_lane = quorum.voter_bits(voters2, cfg.k)
+        self_voter = (voters2 >> i) & 1
+        maj = quorum.voter_majority(voters2)
+    acks = (recent & voter_lane & (lanes != i.unsqueeze(-1))).to(I32).sum(
+        -1, dtype=I32)
+    done = ((ns.sched_read_index >= 0) & (acks + self_voter >= maj)
+            & (ns.applied >= ns.sched_read_index))
+    return ns._replace(
+        reads_done=ns.reads_done + done.to(I32),
+        sched_read_index=W(done, -1, ns.sched_read_index))
 
 
 # ------------------------------------------------------------ per-node tick
 
 
-def _node_tick(cfg, nodes: PerNode, inbox: Mailbox, g, i):
+def _node_tick(cfg, nodes: PerNode, inbox: Mailbox, g, i, t: int):
     """Every replica's phases D/T/C/A at once. Returns the new nodes and
     the outbox ([G, dst, src])."""
     gsz, k = nodes.role.shape
-    out = empty_mailbox((gsz, k, k), nodes.role.device)._asdict()
-    gl = (nodes.log_term, nodes.log_payload)   # end-of-previous-tick rings
+    out = empty_mailbox(cfg, (gsz, k, k), nodes.role.device)._asdict()
+    # Phase-D context: the end-of-previous-tick rings and the clock.
+    gl = (nodes.log_term, nodes.log_payload, t)
     ns = nodes
-    for handler in _HANDLERS:
+    for handler in _handlers(cfg):
         for src in range(cfg.k):
             ns = handler(cfg, ns, out, g, i, src, inbox, gl)
-    ns = _phase_t(cfg, ns, out, g, i)
-    ns = _phase_c(cfg, ns, g)
+    ns = _phase_t(cfg, ns, out, g, i, t)
+    ns = _phase_c(cfg, ns, g, t)
     ns = _phase_a(cfg, ns, i)
     return ns, Mailbox(**out)
 
@@ -525,7 +770,8 @@ def _filter_mailbox(cfg, mb: Mailbox, t, alive_now, group_id) -> Mailbox:
                                  cfg.partition_u32, cfg.partition_epoch)
     drop = trng.link_dropped(cfg.seed, gg, t, src, dst, cfg.drop_u32)
     keep = alive_now[:, :, None] & ~part & ~drop
-    return mb._replace(**{f: getattr(mb, f) & keep for f in PRESENT_FIELDS})
+    return mb._replace(**{f: getattr(mb, f) & keep
+                          for f in present_fields(cfg)})
 
 
 def tick(cfg: RaftConfig, st: State, t: int) -> State:
@@ -540,7 +786,7 @@ def tick(cfg: RaftConfig, st: State, t: int) -> State:
     nodes = _apply_restart(cfg, st.nodes, g_grid, i_grid,
                            alive_now & ~st.alive_prev)
     inbox = _filter_mailbox(cfg, st.mailbox, t, alive_now, st.group_id)
-    new_nodes, outbox = _node_tick(cfg, nodes, inbox, g_grid, i_grid)
+    new_nodes, outbox = _node_tick(cfg, nodes, inbox, g_grid, i_grid, t)
 
     # Dead nodes: state frozen, sends erased; their in-flight mail stays.
     def freeze(new, old):
@@ -552,7 +798,7 @@ def tick(cfg: RaftConfig, st: State, t: int) -> State:
     new_nodes = PerNode(*(freeze(a, b) for a, b in zip(new_nodes, nodes)))
     src_alive = alive_now[:, None, :]   # sender axis is 2 in [G, dst, src]
     outbox = outbox._replace(**{f: getattr(outbox, f) & src_alive
-                                for f in PRESENT_FIELDS})
+                                for f in present_fields(cfg)})
     return State(nodes=new_nodes, mailbox=outbox,
                  alive_prev=alive_now.contiguous(), group_id=st.group_id)
 

@@ -16,3 +16,7 @@ TAG_CRASH = 3     # per-node per-epoch crash schedule
 TAG_PART = 4      # per-group per-epoch partition active?
 TAG_PART_SIDE = 5  # per-node partition side assignment
 TAG_CMD = 6       # client command payloads
+TAG_RECONFIG = 7       # per-group per-epoch membership-change proposal?
+TAG_RECONFIG_NODE = 8  # which node's membership the proposal toggles
+TAG_TRANSFER = 9       # per-group per-epoch leadership-transfer attempt?
+TAG_TRANSFER_NODE = 10  # which node the transfer hands leadership to

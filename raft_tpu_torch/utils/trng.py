@@ -113,6 +113,26 @@ def client_payload(seed, g, term, index):
     return _i32(hash_u32(seed, _r.TAG_CMD, g, term, index) & 0x3FFFFFFF)
 
 
+def reconfig_fires(seed, g, epoch, reconfig_u32: int):
+    if reconfig_u32 == 0:
+        return _zeros_bool(g, epoch)
+    return hash_u32(seed, _r.TAG_RECONFIG, g, epoch) < reconfig_u32
+
+
+def reconfig_target(seed, g, epoch, k: int):
+    return _i32(hash_u32(seed, _r.TAG_RECONFIG_NODE, g, epoch) % k)
+
+
+def transfer_fires(seed, g, epoch, transfer_u32: int):
+    if transfer_u32 == 0:
+        return _zeros_bool(g, epoch)
+    return hash_u32(seed, _r.TAG_TRANSFER, g, epoch) < transfer_u32
+
+
+def transfer_target(seed, g, epoch, k: int):
+    return _i32(hash_u32(seed, _r.TAG_TRANSFER_NODE, g, epoch) % k)
+
+
 def digest_update(digest, index, payload):
     return mix32(_mulc(_u32(digest), _r.GOLD)
                  + mix32(_mulc(_u32(index), _r.GOLD) + _u32(payload)))

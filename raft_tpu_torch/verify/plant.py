@@ -12,9 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from raft_tpu_torch.config import RaftConfig
+from raft_tpu_torch.config import CONFIG_FLAG, RaftConfig
 from raft_tpu_torch.core.node import LEADER
-from raft_tpu_torch.sim.state import PRESENT_FIELDS, State
+from raft_tpu_torch.sim.state import State, present_fields
 
 # The predicate each planted group breaks, in group order.
 KINDS = ("election_safety", "digest_agreement", "window_bounds",
@@ -43,7 +43,7 @@ def plant_violations(cfg: RaftConfig, st: State):
             raise ValueError(f"no group of the state can take {kind}")
     groups = torch.tensor(list(planted.values()), device=st.group_id.device)
     mb = st.mailbox._asdict()
-    for f in PRESENT_FIELDS:
+    for f in present_fields(cfg):
         mb[f] = mb[f].clone()
         mb[f][groups] = False
     return st._replace(nodes=st.nodes._replace(**n),
@@ -59,6 +59,8 @@ def _plant(kind: str, n: dict, g: int, k: int, cap: int) -> bool:
     if i <= max(int(n["snap_index"][g, a]), int(n["snap_index"][g, b])):
         return False   # b's committed prefix misses the leader's window
     if kind == "election_safety":
+        if not _voter_throughout(n, g, b):
+            return False   # a removed leader would step down this tick
         n["role"][g, b] = LEADER
         n["term"][g, b] = n["term"][g, a]
     elif kind == "digest_agreement":
@@ -82,3 +84,12 @@ def _plant(kind: str, n: dict, g: int, k: int, cap: int) -> bool:
     else:   # divergent payload at the newest index both hold
         n["log_payload"][g, b, (i - 1) % cap] ^= 1
     return True
+
+
+def _voter_throughout(n: dict, g: int, b: int) -> bool:
+    """Node b of group g is a voter in its snapshot config and in every
+    membership entry its ring holds, live or stale."""
+    cfg_entries = n["log_payload"][g, b]
+    cfg_entries = cfg_entries[(cfg_entries & CONFIG_FLAG) != 0]
+    return bool((int(n["snap_voters"][g, b]) >> b) & 1) and \
+        bool(((cfg_entries >> b) & 1).all())

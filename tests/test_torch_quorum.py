@@ -49,3 +49,31 @@ def test_popcount_and_majority_match_jax():
                                   np.asarray(jq.popcount(masks)))
     np.testing.assert_array_equal(tq.voter_majority(t).numpy(),
                                   np.asarray(jq.voter_majority(masks)))
+
+
+def test_voters_aware_quorums_match_jax():
+    """vote_won and commit_candidate_voters on random voter bitmasks
+    (the empty set included: the tally is then -1)."""
+    k, g = 5, 512
+    rs = np.random.default_rng(6)
+    votes = rs.random((g, k)) < 0.5
+    voters = rs.integers(0, 1 << k, g).astype(np.int32)
+    voters[:3] = (0, 1, (1 << k) - 1)
+    match = rs.integers(0, 40, (g, k)).astype(np.int32)
+    last = rs.integers(0, 40, g).astype(np.int32)
+    node = rs.integers(0, k, g).astype(np.int32)
+    np.testing.assert_array_equal(
+        tq.voter_bits(torch.from_numpy(voters), k).numpy(),
+        np.asarray(jax.vmap(lambda v: jq.voter_bits(v, k))(voters)))
+    np.testing.assert_array_equal(
+        tq.vote_won(torch.from_numpy(votes), torch.from_numpy(voters),
+                    k).numpy(),
+        np.asarray(jax.vmap(lambda a, v: jq.vote_won(a, v, k))(votes,
+                                                                voters)))
+    got = tq.commit_candidate_voters(
+        torch.from_numpy(match), torch.from_numpy(last),
+        torch.from_numpy(node), torch.from_numpy(voters), k)
+    want = jax.vmap(lambda m, li, i, v: jq.commit_candidate_voters(
+        m, li, i, v, k))(match, last, node, voters)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got[0]) == -1

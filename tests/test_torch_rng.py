@@ -29,7 +29,8 @@ def _np(x):
 
 def test_constants_match_reference():
     for name in ("GOLD", "TAG_TIMEOUT", "TAG_DROP", "TAG_CRASH", "TAG_PART",
-                 "TAG_PART_SIDE", "TAG_CMD"):
+                 "TAG_PART_SIDE", "TAG_CMD", "TAG_RECONFIG",
+                 "TAG_RECONFIG_NODE", "TAG_TRANSFER", "TAG_TRANSFER_NODE"):
         assert getattr(trng_consts, name) == getattr(prng, name), name
     assert trng_consts.SEED0 == prng._SEED0
 
@@ -137,3 +138,25 @@ def test_digest_update_parity():
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
     assert int(got[9]) == prng.digest_update(int(dig[9]), int(idx[9]),
                                              int(pay[9]))
+
+
+@pytest.mark.parametrize("kind", ["reconfig", "transfer"])
+@pytest.mark.parametrize("prob", [0.0, 0.3, 1.0])
+def test_schedule_draws_parity(kind, prob):
+    """The membership-change and transfer schedules: whether an epoch
+    fires, and the node it names, for k in 1..8."""
+    u32 = min(int(prob * 2 ** 32), 0xFFFFFFFF)
+    g = np.arange(-4, 60, dtype=np.int32)[:, None]
+    epoch = np.arange(0, 80, 3, dtype=np.int32)[None, :]
+    fires = getattr(trng, f"{kind}_fires")(11, _t(g), _t(epoch), u32)
+    want = np.asarray(getattr(jrng, f"{kind}_fires")(11, g, epoch, u32))
+    np.testing.assert_array_equal(fires.numpy(), want)
+    assert bool(fires.any()) == (u32 != 0)
+    for k in (1, 3, 5, 8):
+        got = getattr(trng, f"{kind}_target")(11, _t(g), _t(epoch), k)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(
+            got.numpy(),
+            np.asarray(getattr(jrng, f"{kind}_target")(11, g, epoch, k)))
+    assert int(getattr(trng, f"{kind}_target")(11, 5, 7, 5)) == \
+        getattr(prng, f"{kind}_target")(11, 5, 7, 5)

@@ -29,8 +29,11 @@ def assert_same(jax_tree, torch_tree):
 
 @pytest.mark.parametrize("kw", [dict(n_groups=6, seed=42),
                                 dict(n_groups=9, k=3, log_cap=8,
-                                     compact_every=4, seed=5)],
-                         ids=["k5_L32", "k3_L8"])
+                                     compact_every=4, seed=5),
+                                dict(n_groups=4, seed=1, prevote=True),
+                                dict(n_groups=4, seed=2, transfer_prob=0.3,
+                                     reconfig_prob=0.3, read_every=8)],
+                         ids=["k5_L32", "k3_L8", "prevote", "transfer"])
 def test_init_matches_jax_every_leaf(kw):
     st = state.init(RaftConfig(**kw), device="cpu")
     assert_same(jstate.init(JaxConfig(**kw)), st)

@@ -3,9 +3,9 @@ package's (raft_tpu.sim.step.tick): full State equality after every
 tick, tolerance 0, on five universes — the kernel fault mix, the
 headline width, the config-4 fault knobs at headline width, the
 election-rounds knobs (no commands: leaders only heartbeat), and the
-multi-source AppendEntries universe. Also: every feature outside this
-slice is refused when the config is built, and the config validation
-is the reference's."""
+multi-source AppendEntries universe. Also: every feature the port does
+not carry yet is refused when the config is built, and the config
+validation is the reference's."""
 
 from __future__ import annotations
 
@@ -63,8 +63,7 @@ def test_tick_matches_jax_every_tick(name):
 
 
 UNPORTED = [
-    dict(prevote=True), dict(reconfig_prob=0.5), dict(transfer_prob=0.5),
-    dict(read_every=4), dict(sessions=True, cmds_per_tick=0),
+    dict(sessions=True, cmds_per_tick=0),
     dict(sessions=True, cmds_per_tick=0, client_rate=0.1),
     dict(nemesis=((1, 0, 10, 1, 1, 1, 0, 0),)),
     dict(narrow_scalars=True), dict(narrow_ring=True),
