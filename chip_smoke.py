@@ -9,15 +9,20 @@ plain PyTorch tick on each path's own inputs. Phases, each of which
 raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the kernel from the checkout's sources for all sixteen feature
-   flag sets (the runs launch three), one nvcc per set, all started
-   together; print each build's registers, frame and spills (ptxas -v);
-3. the safety fold: a headline state at 4,096 groups and a feature-mix
-   state at 1,000 groups, each with one group planted per safety
-   predicate; kernel and plain must agree and clear the safety bit in
-   exactly the planted groups;
+2. build the kernel from the checkout's sources for all 32 feature flag
+   sets (the runs launch four), one nvcc per set, all started together;
+   print each build's registers, frame and spills (ptxas -v);
+3. the safety fold: a headline state at 4,096 groups, a feature-mix
+   state and a client-traffic state at 1,000 groups, each with one group
+   planted per safety predicate (and per exactly-once clause); kernel
+   and plain must agree and clear the safety bit in exactly the planted
+   groups;
 4. the plain tick over every run, in the same 200-tick chunks, kept as
-   the reference at every chunk boundary;
+   the reference at every chunk boundary: all three chunks of the
+   client path's runs, the first chunk of the earlier paths' runs (the
+   plain tick is host-bound, about 20-40 s a chunk, and the earlier
+   paths were held to it at full depth by the smoke runs that brought
+   them up);
 5. each run on the kernel, its launch counts set to 0 just before it
    and read just after. The main path: the headline (RaftConfig(seed=42),
    100,000 groups), config-4 (seed 43, crash 0.3/64, partition 0.2/64,
@@ -26,11 +31,18 @@ raises on failure:
    (bench.py bench_reads: seed 45, read_every=4; 50,000 groups) and the
    feature mix (the flagship entry's knobs: every fault class, PreVote,
    reads, membership change and leadership transfer; 50,000 groups).
-   600 ticks each in 3 x 200-tick launches;
-6. every chunk boundary of phase 5 against phase 4 (full State and
-   Metrics, max abs err 0), then the readouts: rounds/s, ms/tick,
-   p50/p99 election latency, censoring, elections/s, reads/s, safety,
-   and that each feature fired;
+   The client path, with the flight ring on as bench.py's client
+   segment records it: clients (bench.py bench_clients: seed 47, four
+   retrying exactly-once sessions per group at rate 0.2 under the
+   config-5 fault mix; 50,000 groups) and clients-cap (the same at rate
+   0.5 behind an admission cap of 8; 10,000 groups). 600 ticks each in
+   3 x 200-tick launches;
+6. every chunk boundary of phase 5 that phase 4 reached, against phase
+   4 (full State, Metrics and, where recorded, Flight; max abs err 0),
+   then the readouts:
+   rounds/s, ms/tick, p50/p99 election latency, censoring, elections/s,
+   reads/s, client ops/s, retries, p50/p99 ack latency, sheds, the
+   exactly-once report, safety, and that each feature fired;
 7. a `kernels` JSON line: launches, times and bound, and the same for
    each flag set's build by run.
 
@@ -77,6 +89,17 @@ def feature_mix(n_groups):
                       transfer_prob=0.3, transfer_epoch=16)
 
 
+def bench_clients(n_groups, **kw):
+    """bench.py bench_clients' knobs (bench.py:1108-1112): the config-5
+    fault mix with four retrying exactly-once sessions per group."""
+    from raft_tpu_torch.config import RaftConfig
+    knobs = dict(n_groups=n_groups, seed=47, sessions=True, cmds_per_tick=0,
+                 client_rate=0.2, client_slots=4, client_retry_backoff=8,
+                 crash_prob=0.3, crash_epoch=64, partition_prob=0.2,
+                 partition_epoch=64, drop_prob=0.02)
+    return RaftConfig(**dict(knobs, **kw))
+
+
 def gpu_line() -> str:
     out = subprocess.run(GPU_QUERY, check=True, capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -115,8 +138,10 @@ def op_count(cfg, g, n_ticks, st0, st1, committed) -> float:
     hash (group, node, epoch) only), one drop draw per link the delivery
     filter reads (`live_links`), one fire draw per group per membership
     and transfer epoch and one target draw where it fires, the deadline
-    draws taken, one payload hash per committed entry and one digest
-    fold per applied entry. A run starts at tick 0."""
+    draws taken, one payload hash per committed entry (fire-hose
+    commands), one arrival draw per client slot per group-tick and one
+    value hash per submit pulse (clients), and one digest fold per
+    applied entry. A run starts at tick 0."""
     from raft_tpu_torch.utils import trng
     k, gid = cfg.k, st0.group_id
 
@@ -143,9 +168,22 @@ def op_count(cfg, g, n_ticks, st0, st1, committed) -> float:
                  - st0.nodes.rng_draws.to(torch.int64)).sum())
     applied = int((st1.nodes.applied.to(torch.int64)
                    - st0.nodes.applied.to(torch.int64)).clamp(min=0).sum())
-    ops += draws * 5 * FOLD_OPS + committed * 5 * FOLD_OPS
-    ops += applied * (2 * MIX_OPS + 4)
+    ops += draws * 5 * FOLD_OPS + applied * (2 * MIX_OPS + 4)
+    if cfg.cmds_per_tick:
+        ops += committed * 5 * FOLD_OPS
+    if cfg.clients_u32:
+        ops += cfg.client_slots * g * n_ticks * 5 * FOLD_OPS
+        ops += submit_pulses(st1.clients) * 5 * FOLD_OPS
     return ops
+
+
+def submit_pulses(cl) -> int:
+    """The submit pulses phase C consumed in a run from tick 0: every op
+    started (done or in flight) and every retry raised a pulse, less the
+    pulses the last tick raised for the tick after the run."""
+    return int(sum(getattr(cl, f).to(torch.int64).sum()
+                   for f in ("done", "inflight", "retries"))
+               - cl.submit.to(torch.int64).sum())
 
 
 def live_links(cfg, gid, n_ticks) -> int:
@@ -177,30 +215,45 @@ CHUNK, N_TICKS = 200, 600
 
 
 def all_runs():
-    """(label, cfg, groups) of every run. The main path: bench.py's
-    headline, config-4 and election-rounds segments (bench.py:1484-1489;
-    election rounds cut from 2,400 to 600 ticks). The protocol-feature
-    path: bench.py's reads segment (bench.py:1490, 600 ticks as there)
-    and the flagship entry's feature mix."""
+    """(label, cfg, groups, flight ring on, chunks of the plain reference)
+    of every run. The main path:
+    bench.py's headline, config-4 and election-rounds segments
+    (bench.py:1484-1489; election rounds cut from 2,400 to 600 ticks).
+    The protocol-feature path: bench.py's reads segment (bench.py:1490,
+    600 ticks as there) and the flagship entry's feature mix. The client
+    path: bench.py's client segment (bench.py:1088-1112 at :1491's
+    50,000 groups, with its flight ring) and its admission-capped top
+    rung (bench.py:1207-1208: rate 0.5, cap 8)."""
     from raft_tpu_torch.config import RaftConfig
-    return (("headline", RaftConfig(seed=42), 100_000),
-            ("config-4", config4(50_000), 50_000),
+    return (("headline", RaftConfig(seed=42), 100_000, False, 1),
+            ("config-4", config4(50_000), 50_000, False, 1),
             ("election-rounds", RaftConfig(seed=44, cmds_per_tick=0,
                                            crash_prob=0.5, crash_epoch=32),
-             10_000),
-            ("reads", RaftConfig(seed=45, read_every=4), 50_000),
-            ("feature-mix", feature_mix(50_000), 50_000))
+             10_000, False, 1),
+            ("reads", RaftConfig(seed=45, read_every=4), 50_000, False, 1),
+            ("feature-mix", feature_mix(50_000), 50_000, False, 1),
+            ("clients", bench_clients(50_000), 50_000, True, 3),
+            ("clients-cap", bench_clients(10_000, client_rate=0.5,
+                                          client_queue_cap=8), 10_000,
+             True, 3))
 
 
 def ptxas_lines(report: str) -> str:
-    """The frame, spill and register lines of one build's ptxas -v."""
-    return "; ".join(ln.strip() for ln in report.splitlines()
-                     if "stack frame" in ln or "registers" in ln)
+    """The frame, spill and register lines of one build's ptxas -v, for
+    each of its two kernels (without and with the flight ring)."""
+    out = []
+    for part in report.split("Compiling entry function")[1:]:
+        ring = "Lb1E" in part.split("'")[1]   # the FLIGHT template argument
+        out.append(("ring: " if ring else "no ring: ") + "; ".join(
+            ln.strip() for ln in part.splitlines()
+            if "stack frame" in ln or "registers" in ln))
+    return " | ".join(out)
 
 
 def planted_fold(kernel, run, state, plant, cfg, g, dev):
     """Kernel and plain over 3 ticks of a state with one group planted
-    per safety predicate: equal, and unsafe in exactly those groups."""
+    per safety predicate (and exactly-once clause): equal, and unsafe in
+    exactly those groups."""
     st, m = run.run(cfg, state.init(cfg, g, device=dev), 37)
     st, planted = plant.plant_violations(cfg, st)
     leaves, g = kernel.kinit(cfg, st, m)
@@ -221,11 +274,19 @@ def membership_changed(cfg, st) -> bool:
                 or ((n.log_payload & CONFIG_FLAG) != 0).any())
 
 
-def chunked(step, cfg, leaves):
-    """Run `step` over N_TICKS in CHUNK-tick calls: (the leaves after
-    each chunk, each chunk's ms by CUDA events)."""
+def finished(kernel, cfg, leaves, g):
+    """(State, Metrics[, Flight]) of a wire pair."""
+    out = kernel.kfinish(cfg, leaves, g)
+    flight = kernel.kflight(cfg, leaves, g)
+    return out if flight is None else out + (flight,)
+
+
+def chunked(step, cfg, leaves, n_chunks=None):
+    """Run `step` over the first `n_chunks` (default: all) CHUNK-tick
+    chunks of N_TICKS: (the leaves after each chunk, each chunk's ms by
+    CUDA events)."""
     outs, ms = [], []
-    for at in range(0, N_TICKS, CHUNK):
+    for at in range(0, N_TICKS, CHUNK)[:n_chunks]:
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         e0.record()
         leaves = step(cfg, leaves, at, CHUNK)
@@ -240,6 +301,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from raft_tpu_torch.clients import workload
+    from raft_tpu_torch.obs import recorder
     from raft_tpu_torch.sim import kernel, run, state
     from raft_tpu_torch.verify import plant
 
@@ -264,25 +327,32 @@ def main() -> int:
 
     # 3. the safety fold on planted violations
     for label, cfg, g in (("headline", runs[0][1], 4096),
-                          ("feature-mix", runs[4][1], 1000)):
+                          ("feature-mix", runs[4][1], 1000),
+                          ("clients", runs[5][1], 1000)):
         planted = planted_fold(kernel, run, state, plant, cfg, g, dev)
         print(f"[3] {label}, planted violations {planted}: kernel == "
               f"plain, safety 0 in exactly those groups", flush=True)
 
     # 4. the plain reference of every run
     starts, plain = {}, {}
-    for label, cfg, g in runs:
+
+    def wire(label, cfg, g, fl):
+        flight = recorder.flight_init(g, device=dev) if fl else None
+        return kernel.kinit(cfg, starts[label], flight=flight)[0]
+
+    for label, cfg, g, fl, n_plain in runs:
         starts[label] = state.init(cfg, g, device=dev)
-        leaves, _ = kernel.kinit(cfg, starts[label])
-        plain[label] = chunked(kernel.kstep_plain, cfg, leaves)
-        print(f"[4] plain {label}, {g} groups, {N_TICKS} ticks: chunk ms "
-              f"{[round(x, 1) for x in plain[label][1]]}", flush=True)
+        plain[label] = chunked(kernel.kstep_plain, cfg,
+                               wire(label, cfg, g, fl), n_plain)
+        print(f"[4] plain {label}, {g} groups, {n_plain * CHUNK} ticks: "
+              f"chunk ms {[round(x, 1) for x in plain[label][1]]}",
+              flush=True)
 
     # 5. every run on the kernel, its counts set to 0 just before it and
     # read just after
     main, launches = {}, {}
-    for label, cfg, g in runs:
-        leaves, _ = kernel.kinit(cfg, starts[label])
+    for label, cfg, g, fl, _ in runs:
+        leaves = wire(label, cfg, g, fl)
         kernel.kstep.launches = 0
         main[label] = chunked(kernel.kstep, cfg, leaves)
         launches[label] = kernel.kstep.launches
@@ -291,28 +361,28 @@ def main() -> int:
                                  f"{launches[label]} times")
 
     # 6. every chunk boundary against the plain tick, then the readouts
-    err = 0
-    for label, cfg, g in runs:
+    err, n_cmp = 0, 0
+    for label, cfg, g, _, _ in runs:
         for at, (k_out, p_out) in enumerate(zip(main[label][0],
                                                 plain[label][0])):
-            e = max_abs_err(kernel.kfinish(cfg, k_out, g),
-                            kernel.kfinish(cfg, p_out, g))
+            e = max_abs_err(finished(kernel, cfg, k_out, g),
+                            finished(kernel, cfg, p_out, g))
             if e != 0:
                 raise AssertionError(f"{label}: kernel != plain after "
                                      f"chunk {at} (max abs err {e})")
-            err = max(err, e)
+            err, n_cmp = max(err, e), n_cmp + 1
     n_launch = sum(launches.values())
-    print(f"[6] {n_launch} launches {launches}; every chunk boundary "
+    print(f"[6] {n_launch} launches {launches}; {n_cmp} chunk boundaries "
           f"bit-identical to the plain tick (max abs err {err})",
           flush=True)
 
     out = {}
-    for label, cfg, g in runs:
+    for label, cfg, g, _, _ in runs:
         st1, m = kernel.kfinish(cfg, main[label][0][-1], g)
         if run.unsafe_groups(m):
             raise AssertionError(f"{label}: safety bit dropped")
         out[label] = (st1, m, sum(main[label][1]) / 1e3)
-    cfg, g_head = runs[0][1], runs[0][2]
+    g_head = runs[0][2]
     st1, m, secs = out["headline"]
     rounds = run.total_rounds(m)
     if rounds <= 0:
@@ -374,19 +444,45 @@ def main() -> int:
           f"reads/s, top term {top_term}, membership changed, safety "
           f"all 1", flush=True)
 
+    for label, cfg, g, _, _ in runs[5:]:
+        st1, m, secs = out[label]
+        leaves = main[label][0][-1]
+        acked, retries = (kernel.kacked(cfg, leaves, g),
+                          kernel.kretries(cfg, leaves, g))
+        chist = m.client_hist.cpu().numpy()
+        ok, why = workload.exactly_once_report(cfg, st1, m)
+        shed = (int(st1.clients.shed.sum()) if st1.clients.shed is not None
+                else None)
+        rows = recorder.flight_rows(kernel.kflight(cfg, leaves, g))
+        if not ok or acked <= 0 or retries <= 0 or shed == 0 \
+                or len(rows) != recorder.RING:
+            raise AssertionError(
+                f"{label}: exactly-once {ok} ({why}), acked {acked}, "
+                f"retries {retries}, shed {shed}, flight rows {len(rows)}")
+        print(f"[6] {label} {g} groups, {N_TICKS} ticks: chunk ms "
+              f"{[round(c, 2) for c in main[label][1]]}; {acked} ops "
+              f"acked, {acked / secs:.1f} client ops/s, {retries} retries, "
+              f"shed {shed}, ack p50 {run.latency_quantile(chist, 0.5)} "
+              f"p99 {run.latency_quantile(chist, 0.99)} ticks, censored "
+              f"p50/p99 {run.latency_censored(chist, 0.5)}/"
+              f"{run.latency_censored(chist, 0.99)}, client_max_lat "
+              f"{int(m.client_max_lat)}, {run.total_rounds(m) / secs:.1f} "
+              f"rounds/s, {why}, flight ring {rows[0]['tick']}-"
+              f"{rows[-1]['tick']}, safety all 1", flush=True)
+
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with
     def bound(label, cfg, g):
         st1, m, _ = out[label]
         ops = op_count(cfg, g, N_TICKS, starts[label], st1,
                        run.total_rounds(m))
-        by_bytes = 2 * kernel._wire_rows(cfg)[1] * 4 * g \
-            / HBM_BYTES_PER_S * 1e3
+        rows = main[label][0][-1][0].shape[0]   # wire rows, flight included
+        by_bytes = 2 * rows * 4 * g / HBM_BYTES_PER_S * 1e3
         by_ops = ops / (N_TICKS // CHUNK) / INT32_OPS_PER_S * 1e3
         return by_bytes, by_ops
 
     per_run = {}
-    for label, cfg, g in runs:
+    for label, cfg, g, _, _ in runs:
         by_bytes, by_ops = bound(label, cfg, g)
         per_run[label] = {
             "groups": g, "launches": launches[label],
@@ -399,7 +495,7 @@ def main() -> int:
               f"{by_bytes:.4f} ms, by operations {by_ops:.4f} ms",
               flush=True)
     by_build = {}
-    for label, cfg, _ in runs:
+    for label, cfg, *_ in runs:
         by_build.setdefault(kernel.flag_name(kernel.features(cfg)),
                             []).append(label)
     head = per_run["headline"]

@@ -7,8 +7,9 @@ Probabilities are floats in [0, 1], converted to uint32 thresholds
 counter-based hashes (utils/trng.py).
 
 The port runs the default protocol with crash, partition and drop
-faults, PreVote, leadership transfer, single-server membership change
-and scheduled ReadIndex reads. Every other feature raises
+faults, PreVote, leadership transfer, single-server membership change,
+scheduled ReadIndex reads and scheduled exactly-once client traffic
+(sessions, with bounded admission). Every other feature raises
 `NotImplementedError` when the config is built, never partway through a
 run (`_UNPORTED`).
 Validation failures raise `ValueError` (the JAX package asserts).
@@ -25,6 +26,16 @@ _U32 = 0xFFFFFFFF
 # the new voter bitmask.
 CONFIG_FLAG = 1 << 30
 
+# Client-session encoding: a set SESSION_FLAG bit (below CONFIG_FLAG)
+# marks a session command, with the sid in bits 20-28, the client
+# sequence number in bits 10-19 and a 10-bit value hash in bits 0-9. The
+# state machine applies a (sid, seq) at most once. A session issues at
+# most SESSION_SEQ_MASK + 1 = 1024 commands.
+SESSION_FLAG = 1 << 29
+SESSION_SID_SHIFT, SESSION_SID_MASK = 20, 0x1FF
+SESSION_SEQ_SHIFT, SESSION_SEQ_MASK = 10, 0x3FF
+SESSION_VAL_MASK = 0x3FF
+
 
 def _prob_to_u32(p: float) -> int:
     """Map a probability to a uint32 threshold: event iff hash < threshold.
@@ -40,8 +51,6 @@ def _prob_to_u32(p: float) -> int:
 # (field, predicate on its value, what it is) for every feature the
 # port does not carry yet. Each is refused at construction.
 _UNPORTED = (
-    ("client_rate", lambda v: v > 0.0, "scheduled client traffic"),
-    ("sessions", lambda v: v, "client sessions"),
     ("nemesis", lambda v: len(v) > 0, "the nemesis program"),
     ("narrow_scalars", lambda v: v, "the narrow resident layout"),
     ("narrow_ring", lambda v: v, "the narrow resident layout"),
@@ -118,8 +127,23 @@ class RaftConfig:
                 raise NotImplementedError(
                     f"raft_tpu_torch does not port {what} yet "
                     f"({field}={getattr(self, field)!r}); see ROADMAP.md")
+        _check(not self.sessions or self.cmds_per_tick == 0,
+               "sessions=True needs cmds_per_tick=0: scheduled payloads "
+               "hash the full 30-bit space, so bit 29 would be misread as "
+               "session commands")
+        if self.client_rate > 0.0:
+            _check(self.sessions, "client_rate > 0 needs sessions=True")
+            _check(self.clients_u32 > 0,
+                   f"client_rate {self.client_rate} quantizes to a zero "
+                   f"uint32 arrival threshold")
+            _check(1 <= self.client_slots <= 16,
+                   "client_slots must be in [1, 16]")
+            _check(self.client_retry_backoff >= 1,
+                   "client_retry_backoff must be >= 1")
         _check(self.client_queue_cap >= 0,
                "client_queue_cap must be >= 0 (0 = admission control off)")
+        _check(self.client_queue_cap == 0 or self.client_rate > 0.0,
+               "client_queue_cap > 0 needs client_rate > 0")
         _check(self.cohort_blocks >= 1, "cohort_blocks must be >= 1")
         _check(self.k >= 1, "k must be >= 1")
         _check(self.election_range >= 1, "election_range must be >= 1")
@@ -149,6 +173,12 @@ class RaftConfig:
     @property
     def effective_min_voters(self) -> int:
         return self.min_voters if self.min_voters > 0 else self.k // 2 + 1
+
+    @property
+    def clients_u32(self) -> int:
+        """Arrival threshold of the scheduled client traffic: the one
+        gate of the whole client subsystem (0 = absent)."""
+        return _prob_to_u32(self.client_rate)
 
     @property
     def reconfig_u32(self) -> int:

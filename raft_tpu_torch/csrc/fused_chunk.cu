@@ -6,20 +6,39 @@
 // `pl.pallas_call`), for the features the port carries: RequestVote,
 // AppendEntries, InstallSnapshot, fire-hose commands, commit/apply/
 // compaction, crash/partition/drop faults, the election-latency histogram
-// and the per-tick safety fold, and four protocol features — PreVote,
+// and the per-tick safety fold, four protocol features — PreVote,
 // leadership transfer (TimeoutNow), single-server membership change and
-// scheduled ReadIndex reads. It computes what `raft_tpu_torch.sim.run.run`
-// computes over the same ticks (the plain PyTorch tick, sim/step.py), bit for
-// bit; chip_smoke.py holds the two equal on the card.
+// scheduled ReadIndex reads — the scheduled exactly-once client traffic
+// (session appends, the dedup filter, the client transition, the ack-latency
+// histogram and the exactly-once safety clause) and the flight-recorder ring.
+// It computes what `raft_tpu_torch.sim.run.run` (with a flight:
+// `obs.recorder.run_recorded`) computes over the same ticks (the plain
+// PyTorch tick, sim/step.py), bit for bit; chip_smoke.py holds the two equal
+// on the card.
 //
-// Features. Each protocol feature is a compile-time flag (FC_PREVOTE,
-// FC_TRANSFER, FC_RECONFIG, FC_READS, set by kernel.py per build) guarding
-// its code with `if constexpr`: the build with all four off carries none of
-// their code, branches or mailbox rows, and the launcher refuses a config
-// whose flags differ from the build's. The PreVote/TimeoutNow mailbox
-// slots ride the wire, and the outbox frame, only when their flags are on;
-// the voter set is an i32 bitmask (k <= 8 here) derived from the node's own
-// ring by a scan of the live window, never stored.
+// Features. Each protocol feature and the clients are a compile-time flag
+// (FC_PREVOTE, FC_TRANSFER, FC_RECONFIG, FC_READS, FC_CLIENTS, set by
+// kernel.py per build) guarding its code with `if constexpr`: the build with
+// all five off carries none of their code, branches or mailbox rows, and the
+// launcher refuses a config whose flags differ from the build's. The
+// PreVote/TimeoutNow mailbox slots ride the wire, and the outbox frame, only
+// when their flags are on; the voter set is an i32 bitmask (k <= 8 here)
+// derived from the node's own ring by a scan of the live window, never
+// stored. The flight ring is a launch parameter (its length, 0 = off): the
+// tick writes row t % ring of six per-group rings after the metrics. Each
+// build holds the kernel twice, without and with the ring (a template
+// argument; the launcher picks one), because the ring's code, even behind
+// a runtime branch, grows the base kernel's frame (1,568 -> 1,584 B on
+// sm_90a): the kernel without it is the base build's code as it was.
+//
+// Clients. The per-node dedup tables live in a base class of Node that is
+// empty without clients (as the read lanes do); the per-group client state
+// (S <= SMAX slots) stays in the thread's local memory across the tick loop,
+// loaded once per launch and stored at its end. Each tick computes the
+// submit payloads from the pre-tick client state, every self-believed leader
+// appends them in phase C, phase A folds a session entry only if its seq
+// advances its sid's table entry, and the client transition runs on the
+// post-tick tables. Ack latencies go to `acc` with integer atomics.
 //
 // Design. Groups never talk to each other, so each thread steps its own
 // group through the tick loop sequentially: nodes 0..K-1, each through the
@@ -73,6 +92,9 @@
 #ifndef FC_READS
 #define FC_READS 0
 #endif
+#ifndef FC_CLIENTS
+#define FC_CLIENTS 0
+#endif
 
 namespace {
 
@@ -80,24 +102,32 @@ constexpr bool PREVOTE = FC_PREVOTE != 0;
 constexpr bool TRANSFER = FC_TRANSFER != 0;
 constexpr bool RECONFIG = FC_RECONFIG != 0;
 constexpr bool READS = FC_READS != 0;
+constexpr bool CLIENTS = FC_CLIENTS != 0;
 
 constexpr int KMAX = 8;    // kernel.py refuses larger k
 constexpr int LMAX = 64;   // kernel.py refuses larger log_cap
+constexpr int SMAX = 16;   // the config refuses more client slots
 
 constexpr uint32_t GOLD = 0x9E3779B9u;
 constexpr uint32_t SEED0 = 0x243F6A88u;
 constexpr uint32_t TAG_TIMEOUT = 1, TAG_DROP = 2, TAG_CRASH = 3,
                    TAG_PART = 4, TAG_PART_SIDE = 5, TAG_CMD = 6,
                    TAG_RECONFIG = 7, TAG_RECONFIG_NODE = 8, TAG_TRANSFER = 9,
-                   TAG_TRANSFER_NODE = 10;
+                   TAG_TRANSFER_NODE = 10, TAG_CLIENT_ARRIVAL = 11,
+                   TAG_CLIENT_VAL = 12;
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, PRECANDIDATE = 3,
               NO_VOTE = -1;
 constexpr int CONFIG_FLAG = 1 << 30;   // membership entry: low k bits voters
+// Session command: sid in bits 20-28, seq in bits 10-19, value in bits 0-9.
+constexpr int SESSION_FLAG = 1 << 29;
+constexpr int SID_SHIFT = 20, SID_MASK = 0x1FF, SEQ_SHIFT = 10,
+              SEQ_MASK = 0x3FF, VAL_MASK = 0x3FF;
 constexpr int INT_MAX_ = 0x7FFFFFFF;
 
 // Wire fields, in the order of kernel.py `WIRE_FIELDS`. The offsets come
-// from the wrapper; fields from F_LOG_TERM on are relative to the start of
-// the double-buffered region.
+// from the wrapper (-1 for a field the universe does not carry); the rings
+// and the mailbox fields (F_LOG_TERM to F_IS_REQ_SNAP_SESSIONS) are
+// relative to the start of the double-buffered region.
 enum Field {
   F_TERM, F_VOTED_FOR, F_SNAP_INDEX, F_SNAP_TERM, F_SNAP_DIGEST,
   F_SNAP_VOTERS, F_RNG_DRAWS, F_LAST_INDEX, F_ROLE, F_LEADER_ID, F_COMMIT,
@@ -107,7 +137,15 @@ enum Field {
   F_ALIVE_PREV, F_GROUP_ID, F_COMMITTED, F_LEADERLESS, F_SAFETY,
   F_LOG_TERM, F_LOG_PAYLOAD,
   F_MB0,   // first mailbox field; the mailbox fields follow in Mb order
-  N_FIELDS = F_MB0 + 36
+  F_IS_REQ_SNAP_SESSIONS = F_MB0 + 36,   // [K_dst, K_src, S]
+  F_SESSION_SEQ, F_SNAP_SESSION_SEQ,     // [K, S]
+  F_CLIENTS_DONE, F_CLIENTS_BACKLOG, F_CLIENTS_INFLIGHT, F_CLIENTS_T_START,
+  F_CLIENTS_T_SUB, F_CLIENTS_SUBMIT, F_CLIENTS_RETRIES, F_CLIENTS_LAST_LAT,
+  F_CLIENTS_SHED,                        // [S] each
+  F_CLIENT_ACKED, F_CLIENT_RETRIES,
+  F_FLIGHT_TICK, F_FLIGHT_LEADERS, F_FLIGHT_ELECTIONS, F_FLIGHT_COMMIT,
+  F_FLIGHT_MSGS, F_FLIGHT_SAFETY,        // [ring] each
+  N_FIELDS
 };
 
 // Mailbox fields, in the order of the Mailbox NamedTuple.
@@ -151,9 +189,9 @@ enum Param {
   P_HEARTBEAT, P_COMPACT, P_CMDS, P_CRASH_U32, P_CRASH_EPOCH,
   P_PARTITION_U32, P_PARTITION_EPOCH, P_DROP_U32, P_MAJORITY, P_FULL_MASK,
   P_HIST, P_N_WORDS, P_DB_START, P_DB_WORDS, P_T0, P_N_TICKS,
-  P_PREVOTE, P_TRANSFER, P_RECONFIG, P_READS, P_TRANSFER_U32,
+  P_PREVOTE, P_TRANSFER, P_RECONFIG, P_READS, P_CLIENTS, P_TRANSFER_U32,
   P_TRANSFER_EPOCH, P_RECONFIG_U32, P_RECONFIG_EPOCH, P_MIN_VOTERS,
-  P_READ_EVERY,
+  P_READ_EVERY, P_S, P_CLIENTS_U32, P_BACKOFF, P_CAP, P_RING,
   N_PARAMS
 };
 
@@ -171,6 +209,13 @@ struct Args {
   uint32_t reconfig_u32; int reconfig_epoch, min_voters;
   int read_every;
   int off[N_FIELDS];
+  // Members added with the clients and the flight ring come after the
+  // offsets: before them, they moved every offset's place in the parameter
+  // bank, and ptxas then allocated three clients-off builds differently.
+  int S;   // client slots
+  uint32_t clients_u32;
+  int backoff, cap;   // client retry backoff, admission cap (0 = off)
+  int ring;           // flight ring length, 0 = no flight
 };
 
 // ----------------------------------------------------------------- hashes
@@ -217,7 +262,15 @@ struct ReadLanes {
 };
 struct NoReadLanes {};
 
-struct Node : std::conditional_t<READS, ReadLanes, NoReadLanes> {
+// Dedup tables: part of a node's working state only with clients on.
+struct SessLanes {
+  int sess[SMAX], snap_sess[SMAX];   // live table, snapshot's table
+  int sent_sess[SMAX];   // the snapshot table this tick's IS sends carry
+};
+struct NoSessLanes {};
+
+struct Node : std::conditional_t<READS, ReadLanes, NoReadLanes>,
+              std::conditional_t<CLIENTS, SessLanes, NoSessLanes> {
   int term, voted_for, snap_index, snap_term;
   uint32_t snap_digest;
   int snap_voters, rng_draws, last_index, role, leader_id, commit, applied;
@@ -227,6 +280,16 @@ struct Node : std::conditional_t<READS, ReadLanes, NoReadLanes> {
   int ee, hb, deadline, le;
   int lt[LMAX], lp[LMAX];   // own ring, this tick's working copy
 };
+
+// The per-group client state, held across the launch's tick loop, and the
+// payloads of this tick's pulsed ops (clients builds only).
+struct ClientLanes {
+  int done[SMAX], backlog[SMAX], inflight[SMAX], t_start[SMAX];
+  int t_sub[SMAX], submit[SMAX], retries[SMAX], last_lat[SMAX], shed[SMAX];
+  int pay[SMAX];
+};
+struct NoClientLanes {};
+using Clients = std::conditional_t<CLIENTS, ClientLanes, NoClientLanes>;
 
 struct Group {
   const Args& a;
@@ -409,11 +472,11 @@ __device__ __forceinline__ void start_election(const Args& a, Node& n,
 
 // ------------------------------------------------------------ one node
 
-template <class N = Node>
+template <class N = Node, class CL = Clients>
 __device__ void node_step(const Group& gr, int i, unsigned keep,
-                          bool alive, int t) {
+                          bool alive, int t, const CL& cl) {
   const Args& a = gr.a;
-  const int K = a.K, L = a.L;
+  const int K = a.K, L = a.L, S = a.S;
   const uint32_t gid = gr.gid, tu = static_cast<uint32_t>(t);
   N n;
   n.term = gr.s(F_TERM, i);
@@ -444,6 +507,12 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     n.sri = gr.s(F_SCHED_READ_INDEX, i);
     n.srr = gr.s(F_SCHED_READ_REG, i);
     n.rdone = gr.s(F_READS_DONE, i);
+  }
+  if constexpr (CLIENTS) {
+    for (int q = 0; q < S; ++q) {
+      n.sess[q] = gr.s(F_SESSION_SEQ, i * S + q);
+      n.snap_sess[q] = gr.s(F_SNAP_SESSION_SEQ, i * S + q);
+    }
   }
   for (int l = 0; l < L; ++l) {
     n.lt[l] = gr.c(F_LOG_TERM, i * L + l);
@@ -588,6 +657,13 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
         n.commit = si;
         n.applied = si;
         n.digest = sd;
+        if constexpr (CLIENTS) {   // the snapshot's dedup table installs
+          for (int q = 0; q < S; ++q) {
+            const int v = gr.c(F_IS_REQ_SNAP_SESSIONS, (i * K + s) * S + q);
+            n.sess[q] = v;
+            n.snap_sess[q] = v;
+          }
+        }
         match = si;
       }
     }
@@ -654,6 +730,9 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
   int hb = n.hb + 1;
   bool fire = is_leader && hb >= a.heartbeat;
   if (is_leader) n.hb = fire ? 0 : hb;
+  if constexpr (CLIENTS)
+    if (fire)
+      for (int q = 0; q < S; ++q) n.sent_sess[q] = n.snap_sess[q];
   if (fire) {
     for (int p = 0; p < K; ++p) {
       if (p == i) continue;
@@ -761,7 +840,26 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       }
     }
   }
-  if (n.role == LEADER) {
+  bool stopped = false;   // the window filled: no further appends
+  if constexpr (CLIENTS) {
+    // The pulsed session ops in slot order; duplicates appended by two
+    // transient leaders are safe by the exactly-once fold.
+    if (lead) {
+      for (int q = 0; q < S; ++q) {
+        if (!cl.submit[q]) continue;
+        int idx = n.last_index + 1;
+        if (idx - n.snap_index > L) {
+          stopped = true;
+          break;
+        }
+        int sl = slot_of(idx, L);
+        n.lt[sl] = n.term;
+        n.lp[sl] = cl.pay[q];
+        n.last_index = idx;
+      }
+    }
+  }
+  if (n.role == LEADER && !stopped) {
     for (int c = 0; c < a.cmds; ++c) {
       int idx = n.last_index + 1;
       if (idx - n.snap_index > L) break;   // window full
@@ -791,10 +889,25 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
   }
   for (int st = 0; st < L && n.applied + 1 <= n.commit; ++st) {
     int idx = n.applied + 1;
-    n.digest = digest_update(n.digest, idx, n.lp[slot_of(idx, L)]);
+    const int p = n.lp[slot_of(idx, L)];
+    bool fold = true;
+    if constexpr (CLIENTS) {
+      // The exactly-once filter: a session entry folds, and advances its
+      // sid's table entry, only if its seq is above the entry and its sid
+      // is one of the S pre-registered slots.
+      if ((p & SESSION_FLAG) && !(p & CONFIG_FLAG)) {
+        const int sid = (p >> SID_SHIFT) & SID_MASK;
+        const int seq = (p >> SEQ_SHIFT) & SEQ_MASK;
+        fold = sid < S && seq > n.sess[sid];
+        if (fold) n.sess[sid] = seq;
+      }
+    }
+    if (fold) n.digest = digest_update(n.digest, idx, p);
     n.applied = idx;
   }
   if (n.commit - n.snap_index >= a.compact) {
+    if constexpr (CLIENTS)   // the live table folds into the snapshot's
+      for (int q = 0; q < S; ++q) n.snap_sess[q] = n.sess[q];
     int snap_voters = a.full_mask;   // the committed config
     if constexpr (RECONFIG)
       config_scan(a, n, n.commit, snap_voters, cfg_index);
@@ -825,6 +938,12 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     for (int p = 0; p < K; ++p)
       gr.x(F_MB0 + m, p * K + i) =
           (is_presence(m) && !alive) ? 0 : ob[r][p];
+  }
+  if constexpr (CLIENTS) {   // InstallSnapshot's table, to each IS dst
+    for (int p = 0; p < K; ++p)
+      for (int q = 0; q < S; ++q)
+        gr.x(F_IS_REQ_SNAP_SESSIONS, (p * K + i) * S + q) =
+            ob[IS_REQ_PRESENT][p] ? n.sent_sess[q] : 0;
   }
   if (!alive) {
     for (int l = 0; l < L; ++l) {
@@ -865,6 +984,12 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     gr.s(F_SCHED_READ_REG, i) = n.srr;
     gr.s(F_READS_DONE, i) = n.rdone;
   }
+  if constexpr (CLIENTS) {
+    for (int q = 0; q < S; ++q) {
+      gr.s(F_SESSION_SEQ, i * S + q) = n.sess[q];
+      gr.s(F_SNAP_SESSION_SEQ, i * S + q) = n.snap_sess[q];
+    }
+  }
 }
 
 // Restart edge: durable state survives, volatile state rewinds.
@@ -891,6 +1016,9 @@ __device__ void restart(const Group& gr, int i) {
   gr.s(F_RNG_DRAWS, i) = draws + 1;
   gr.s(F_SCHED_READ_INDEX, i) = -1;
   gr.s(F_READS_DONE, i) = 0;
+  if constexpr (CLIENTS)   // the live dedup table rewinds to the snapshot's
+    for (int q = 0; q < a.S; ++q)
+      gr.s(F_SESSION_SEQ, i * a.S + q) = gr.s(F_SNAP_SESSION_SEQ, i * a.S + q);
 }
 
 // The per-tick safety predicate (sim/check.py `tick_safety`) on the
@@ -937,6 +1065,88 @@ __device__ bool tick_safety(const Group& gr) {
   return ok;
 }
 
+// The exactly-once clause of the safety fold, on the post-transition
+// state: no table seq above its slot's issued frontier, and equal tables at
+// equal applied prefixes.
+template <class CL>
+__device__ bool client_safety(const Group& gr, const CL& cl) {
+  const Args& a = gr.a;
+  const int K = a.K, S = a.S;
+  bool ok = true;
+  for (int k = 0; k < K; ++k)
+    for (int q = 0; q < S; ++q)
+      if (gr.s(F_SESSION_SEQ, k * S + q) > cl.done[q]) ok = false;
+  for (int x = 0; x < K; ++x)
+    for (int y = x + 1; y < K; ++y)
+      if (gr.s(F_APPLIED, x) == gr.s(F_APPLIED, y))
+        for (int q = 0; q < S; ++q)
+          if (gr.s(F_SESSION_SEQ, x * S + q) != gr.s(F_SESSION_SEQ, y * S + q))
+            ok = false;
+  return ok;
+}
+
+// The client transition on the post-tick state (clients/workload.py
+// `client_update`): per slot, the ack against the group's applied dedup
+// tables, the open-loop arrival (bounded by the 1,024-op lifetime and, with
+// a cap, by admission), the retry, the start. Ack events go to the
+// ack-latency histogram; `cmax` keeps the longest ack latency.
+template <class CL>
+__device__ void client_update(const Group& gr, CL& cl, int t, int* acc,
+                              int& cmax) {
+  const Args& a = gr.a;
+  const int K = a.K, S = a.S;
+  for (int q = 0; q < S; ++q) {
+    int tmax = gr.s(F_SESSION_SEQ, q);
+    for (int k = 1; k < K; ++k) tmax = max(tmax, gr.s(F_SESSION_SEQ, k * S + q));
+    const bool acked = cl.inflight[q] && tmax >= cl.done[q];
+    cl.last_lat[q] = acked ? t - cl.t_start[q] : -1;
+    if (acked) {
+      cl.done[q] += 1;
+      cl.inflight[q] = 0;
+      atomicAdd(&acc[a.hist + 2 + min(cl.last_lat[q], a.hist - 1)], 1);
+      cmax = max(cmax, cl.last_lat[q]);
+    }
+    bool arrive = cl.done[q] + cl.backlog[q] + cl.inflight[q] <= SEQ_MASK &&
+                  hash_u32(a.seed, TAG_CLIENT_ARRIVAL, gr.gid, q, t) <
+                      a.clients_u32;
+    if (a.cap > 0 && arrive && cl.backlog[q] >= a.cap) {
+      cl.shed[q] += 1;   // a definitive reject: no seq, no retry
+      arrive = false;
+    }
+    cl.backlog[q] += arrive;
+    // Retry before start: only an op that stayed in flight re-submits.
+    const bool retry = cl.inflight[q] && t - cl.t_sub[q] >= a.backoff;
+    const bool start = !cl.inflight[q] && cl.backlog[q] > 0;
+    if (start) {
+      cl.backlog[q] -= 1;
+      cl.inflight[q] = 1;
+      cl.t_start[q] = t;
+    }
+    if (start || retry) cl.t_sub[q] = t;
+    cl.submit[q] = start || retry;
+    cl.retries[q] += retry;
+  }
+}
+
+// The client state's wire rows (`load`: wire -> cl, else cl -> wire).
+template <class CL>
+__device__ void client_rows(const Group& gr, CL& cl, bool load) {
+  const Args& a = gr.a;
+  int* rows[] = {cl.done, cl.backlog, cl.inflight, cl.t_start, cl.t_sub,
+                 cl.submit, cl.retries, cl.last_lat, cl.shed};
+  const int n = a.cap > 0 ? 9 : 8;   // the shed row rides with a cap only
+  for (int f = 0; f < n; ++f)
+    for (int q = 0; q < a.S; ++q) {
+      int& w = gr.s(F_CLIENTS_DONE + f, q);
+      if (load) rows[f][q] = w;
+      else w = rows[f][q];
+    }
+}
+
+// A template over the client state's type, so that a build without clients
+// never instantiates the code that names its members, and over the flight
+// ring (see the head of the file).
+template <class CL, bool FLIGHT>
 __global__ void __launch_bounds__(128)
 fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
                    int* __restrict__ scratch, int* __restrict__ acc,
@@ -960,6 +1170,9 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
   int leaderless = gr.s(F_LEADERLESS, 0);
   int safety = gr.s(F_SAFETY, 0);
   int elections = 0, max_latency = 0;
+  CL cl;
+  int cmax = 0;   // longest ack latency this launch
+  if constexpr (CLIENTS) client_rows(gr, cl, true);
 
   for (int tt = 0; tt < a.n_ticks; ++tt) {
     const uint32_t tu = static_cast<uint32_t>(a.t0 + tt);
@@ -988,6 +1201,18 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
         side |= (hash_u32(a.seed, TAG_PART_SIDE, gr.gid, epoch, k) & 1u)
                 << k;
     }
+    if constexpr (CLIENTS) {
+      // The payloads of the ops the previous tick's transition pulsed
+      // (seq = done; the value hashes the op identity, so a retry is
+      // byte-identical).
+      for (int q = 0; q < a.S; ++q)
+        if (cl.submit[q])
+          cl.pay[q] = SESSION_FLAG | (q << SID_SHIFT) |
+                      (cl.done[q] << SEQ_SHIFT) |
+                      static_cast<int>(hash_u32(a.seed, TAG_CLIENT_VAL,
+                                                gr.gid, q, cl.done[q]) &
+                                       VAL_MASK);
+    }
     for (int i = 0; i < K; ++i) {
       bool alive_i = (alive >> i) & 1u;
       unsigned keep = 0;   // delivery filter for dst = i, by src
@@ -1000,9 +1225,10 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
           if (!cut && !drop) keep |= 1u << s;
         }
       }
-      node_step<>(gr, i, keep, alive_i, a.t0 + tt);
+      node_step<Node, CL>(gr, i, keep, alive_i, a.t0 + tt, cl);
     }
     alive_prev = alive;
+    if constexpr (CLIENTS) client_update(gr, cl, a.t0 + tt, acc, cmax);
 
     // metrics on the post-tick state
     bool has_leader = false;
@@ -1010,13 +1236,36 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
       committed = max(committed, gr.s(F_COMMIT, k));
       if (gr.s(F_ROLE, k) == LEADER && ((alive >> k) & 1u)) has_leader = true;
     }
-    if (has_leader && leaderless > 0) {
+    const bool elected = has_leader && leaderless > 0;
+    if (elected) {
       atomicAdd(&acc[min(leaderless, a.hist - 1)], 1);
       elections += 1;
       max_latency = max(max_latency, leaderless);
     }
     leaderless = has_leader ? 0 : leaderless + 1;
-    if (!tick_safety(gr)) safety = 0;
+    bool safe = tick_safety(gr);
+    if constexpr (CLIENTS) safe = safe && client_safety(gr, cl);
+    if (!safe) safety = 0;
+
+    if constexpr (FLIGHT) {   // the flight ring: row t % ring
+      const int row = static_cast<int>(tu % static_cast<uint32_t>(a.ring));
+      int leaders = 0, top = gr.s(F_COMMIT, 0), msgs = 0;
+      for (int k = 0; k < K; ++k) {
+        leaders += gr.s(F_ROLE, k) == LEADER && ((alive >> k) & 1u);
+        top = max(top, gr.s(F_COMMIT, k));
+      }
+      for (int r = 0; r < N_OB; ++r) {   // the occupied outbox slots
+        const int m = mb_of_row(r);
+        if (!is_presence(m)) continue;
+        for (int q = 0; q < K * K; ++q) msgs += gr.x(F_MB0 + m, q);
+      }
+      gr.s(F_FLIGHT_TICK, row) = a.t0 + tt;
+      gr.s(F_FLIGHT_LEADERS, row) = leaders;
+      gr.s(F_FLIGHT_ELECTIONS, row) = elected;
+      gr.s(F_FLIGHT_COMMIT, row) = top;
+      gr.s(F_FLIGHT_MSGS, row) = msgs;
+      gr.s(F_FLIGHT_SAFETY, row) = safe;
+    }
   }
 
   if (a.n_ticks & 1) {   // the last tick wrote the scratch buffer
@@ -1029,12 +1278,27 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
   gr.s(F_SAFETY, 0) = safety;
   if (elections) atomicAdd(&acc[a.hist], elections);
   if (max_latency) atomicMax(&acc[a.hist + 1], max_latency);
+  if constexpr (CLIENTS) {
+    client_rows(gr, cl, false);
+    // The acked / retry lanes are sums of monotone counters, so their
+    // values after the last tick are what a per-tick recompute leaves.
+    if (a.n_ticks > 0) {
+      int acked = 0, retries = 0;
+      for (int q = 0; q < a.S; ++q) {
+        acked += cl.done[q];
+        retries += cl.retries[q];
+      }
+      gr.s(F_CLIENT_ACKED, 0) = acked;
+      gr.s(F_CLIENT_RETRIES, 0) = retries;
+    }
+    if (cmax) atomicMax(&acc[2 * a.hist + 2], cmax);
+  }
 }
 
 }  // namespace
 
 // Launch on `stream`. `offsets` (n_offsets == N_FIELDS ints, -1 for a
-// mailbox slot the config does not carry) and `params` (n_params ==
+// field the config does not carry) and `params` (n_params ==
 // N_PARAMS int64s) are host arrays. Returns the cudaGetLastError() of the
 // launch (0 = launched), -1 on a bad argument, -2 when the config's
 // feature flags are not this build's.
@@ -1074,17 +1338,32 @@ extern "C" int fused_chunk_launch(const void* wire_in, void* wire_out,
   a.reconfig_epoch = static_cast<int>(params[P_RECONFIG_EPOCH]);
   a.min_voters = static_cast<int>(params[P_MIN_VOTERS]);
   a.read_every = static_cast<int>(params[P_READ_EVERY]);
-  if (a.K < 1 || a.K > KMAX || a.L < 1 || a.L > LMAX || a.G < 1) return -1;
+  a.S = static_cast<int>(params[P_S]);
+  a.clients_u32 = static_cast<uint32_t>(params[P_CLIENTS_U32]);
+  a.backoff = static_cast<int>(params[P_BACKOFF]);
+  a.cap = static_cast<int>(params[P_CAP]);
+  a.ring = static_cast<int>(params[P_RING]);
+  if (a.K < 1 || a.K > KMAX || a.L < 1 || a.L > LMAX || a.G < 1 ||
+      a.ring < 0 || (CLIENTS && (a.S < 1 || a.S > SMAX)))
+    return -1;
   // The config's feature flags must be this build's.
   if (params[P_PREVOTE] != PREVOTE || params[P_TRANSFER] != TRANSFER ||
-      params[P_RECONFIG] != RECONFIG || params[P_READS] != READS)
+      params[P_RECONFIG] != RECONFIG || params[P_READS] != READS ||
+      params[P_CLIENTS] != CLIENTS)
     return -2;
   for (int f = 0; f < N_FIELDS; ++f) a.off[f] = offsets[f];
   const int threads = 128;
   const int blocks = (a.G + threads - 1) / threads;
-  fused_chunk_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(wire_in), static_cast<int*>(wire_out),
-      static_cast<int*>(scratch), static_cast<int*>(acc), a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* in = static_cast<const int*>(wire_in);
+  int* o = static_cast<int*>(wire_out);
+  int* sc = static_cast<int*>(scratch);
+  int* ac = static_cast<int*>(acc);
+  if (a.ring > 0)
+    fused_chunk_kernel<Clients, true><<<blocks, threads, 0, st>>>(in, o, sc,
+                                                                  ac, a);
+  else
+    fused_chunk_kernel<Clients, false><<<blocks, threads, 0, st>>>(in, o, sc,
+                                                                   ac, a);
   return static_cast<int>(cudaGetLastError());
 }

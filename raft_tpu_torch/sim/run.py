@@ -11,6 +11,10 @@ Metrics:
   censoring is detectable (`latency_censored`).
 - `safety[G]`: running AND of the per-tick safety predicate
   (`check.tick_safety`).
+- client lanes (scheduled clients on): `client_acked[G]` and
+  `client_retries[G]` recomputed each tick from the client state, the
+  `[H]` ack-latency histogram of the ops acked each tick and the
+  longest ack latency `client_max_lat`.
 """
 
 from __future__ import annotations
@@ -36,23 +40,29 @@ class Metrics(NamedTuple):
     hist: torch.Tensor         # i32[H] — election-latency histogram
     max_latency: torch.Tensor  # i32 — exact longest completed streak
     safety: torch.Tensor       # i32[G] — per-tick safety AND (1 = never bad)
-    # Client lanes: absent (None) while clients are not ported.
-    client_acked: torch.Tensor | None = None
-    client_retries: torch.Tensor | None = None
-    client_hist: torch.Tensor | None = None
-    client_max_lat: torch.Tensor | None = None
+    # Client SLO lanes: present only with scheduled clients on.
+    client_acked: torch.Tensor | None = None    # i32[G] — ops acked
+    client_retries: torch.Tensor | None = None  # i32[G] — re-submissions
+    client_hist: torch.Tensor | None = None     # i32[H] — ack latencies
+    client_max_lat: torch.Tensor | None = None  # i32 — longest acked op
 
 
 def metrics_init(n_groups: int, hist_size: int = HIST_SIZE,
-                 device="cuda") -> Metrics:
+                 clients: bool = False, device="cuda") -> Metrics:
+    """Zero metrics; `clients=True` for a scheduled-client universe."""
     device = torch.device(device)
 
     def z(*shape):
         return torch.zeros(shape, dtype=I32, device=device)
 
+    cl = {}
+    if clients:
+        cl = dict(client_acked=z(n_groups), client_retries=z(n_groups),
+                  client_hist=z(hist_size), client_max_lat=z())
     return Metrics(committed=z(n_groups), leaderless=z(n_groups),
                    elections=z(), hist=z(hist_size), max_latency=z(),
-                   safety=torch.ones(n_groups, dtype=I32, device=device))
+                   safety=torch.ones(n_groups, dtype=I32, device=device),
+                   **cl)
 
 
 def metrics_update(m: Metrics, st: State, log_cap: int) -> Metrics:
@@ -65,6 +75,27 @@ def metrics_update(m: Metrics, st: State, log_cap: int) -> Metrics:
     hist = m.hist.clone()
     hist.index_add_(0, bucket, done.to(I32))
     zero = torch.zeros_like(m.leaderless)
+    cl = {}
+    if st.clients is not None:
+        if m.client_acked is None:
+            raise ValueError("state carries client traffic but the metrics "
+                             "have no client lanes: metrics_init(g, "
+                             "clients=True)")
+        c = st.clients
+        # Acked/retry totals are recomputed from monotone counters (so a
+        # chunk boundary cannot double-count); the histogram folds this
+        # tick's ack events (`last_lat` >= 0).
+        ev = c.last_lat >= 0
+        cb = torch.clamp(c.last_lat, 0, m.client_hist.shape[0] - 1)
+        chist = m.client_hist.clone()
+        chist.index_add_(0, cb.flatten().long(), ev.flatten().to(I32))
+        cl = dict(
+            client_acked=c.done.sum(dim=1, dtype=I32),
+            client_retries=c.retries.sum(dim=1, dtype=I32),
+            client_hist=chist,
+            client_max_lat=torch.maximum(
+                m.client_max_lat,
+                torch.where(ev, c.last_lat, 0).amax().to(I32)))
     return m._replace(
         committed=committed,
         leaderless=torch.where(has_leader, zero, m.leaderless + 1),
@@ -74,6 +105,7 @@ def metrics_update(m: Metrics, st: State, log_cap: int) -> Metrics:
             m.max_latency, torch.where(done, m.leaderless, zero).amax()),
         safety=torch.where(check.tick_safety(st, log_cap), m.safety,
                            torch.zeros_like(m.safety)),
+        **cl,
     )
 
 
@@ -84,6 +116,7 @@ def run(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0,
     the returned pair and `t0 + n_ticks` to continue the same universe."""
     if metrics is None:
         metrics = metrics_init(st.alive_prev.shape[0],
+                               clients=st.clients is not None,
                                device=st.alive_prev.device)
     for t in range(int(t0), int(t0) + int(n_ticks)):
         st = tick(cfg, st, t)
@@ -95,6 +128,17 @@ def total_rounds(metrics: Metrics) -> int:
     """Total consensus rounds = entries durably committed across groups,
     summed in int64."""
     return int(metrics.committed.to(torch.int64).sum())
+
+
+def total_client_ops(metrics: Metrics) -> int:
+    """Client-visible ops acked exactly once, across groups (int64)."""
+    return int(metrics.client_acked.to(torch.int64).sum())
+
+
+def total_client_retries(metrics: Metrics) -> int:
+    """Re-submissions across groups (int64): each a potential duplicate
+    log entry the exactly-once fold skips."""
+    return int(metrics.client_retries.to(torch.int64).sum())
 
 
 def latency_quantile(hist, q: float) -> int:

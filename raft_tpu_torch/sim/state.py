@@ -16,8 +16,14 @@ dtypes: int32 and bool as in the JAX package. The u32 digests
 [0, 2**32), because torch has no usable uint32 arithmetic
 (utils/trng.py); `to_numpy` restores uint32.
 
-`from_numpy` / `to_numpy` carry a State (or Metrics) across from and to
-numpy arrays — the numpy side is exactly a JAX State with every leaf
+With scheduled clients on, each replica carries its dedup tables
+(`session_seq`, `snap_session_seq`, `[G, K, S]`), InstallSnapshot
+carries the sender's snapshot table (`is_req_snap_sessions`,
+`[G, K_dst, K_src, S]`) and `State.clients` the client state
+(clients/state.py).
+
+`from_numpy` / `to_numpy` carry a State (or Metrics, or Flight) across
+from and to numpy arrays — the numpy side is exactly a JAX State with every leaf
 passed through `np.asarray` — so both packages can start from one
 mid-run state.
 """
@@ -29,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.clients.state import ClientState, clients_init
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.node import FOLLOWER, NO_VOTE
 from raft_tpu_torch.utils import trng
@@ -71,9 +78,10 @@ class PerNode(NamedTuple):
     sched_read_index: torch.Tensor   # i32 — read point, -1 = none
     sched_read_reg: torch.Tensor     # i32 — registration tick
     reads_done: torch.Tensor         # i32 — completed linearizable reads
-    # Session dedup tables: absent (None) while clients are not ported.
-    session_seq: torch.Tensor | None = None
-    snap_session_seq: torch.Tensor | None = None
+    # Session dedup tables, i32[S] (-1 = nothing applied): present only
+    # with scheduled clients on.
+    session_seq: torch.Tensor | None = None       # the live table
+    snap_session_seq: torch.Tensor | None = None  # as of the snapshot
 
 
 class Mailbox(NamedTuple):
@@ -127,7 +135,8 @@ class Mailbox(NamedTuple):
     # schedule is on.
     tn_present: torch.Tensor | None = None       # bool
     tn_term: torch.Tensor | None = None          # i32
-    # Session-table payload of InstallSnapshot: not ported (clients).
+    # InstallSnapshot's session table, i32[S]: present only with
+    # scheduled clients on.
     is_req_snap_sessions: torch.Tensor | None = None
 
 
@@ -136,7 +145,7 @@ class State(NamedTuple):
     mailbox: Mailbox          # in flight: sent last tick, delivered this tick
     alive_prev: torch.Tensor  # bool[G, K] — liveness during the previous tick
     group_id: torch.Tensor    # i32[G] — global group index (seeds the hashes)
-    clients: None = None      # client state: not ported
+    clients: ClientState | None = None   # [G, S] leaves; clients on only
 
 
 MB_BOOL = ("rv_req_present", "rv_resp_present", "rv_resp_granted",
@@ -147,7 +156,8 @@ MB_U32 = ("is_req_snap_digest",)
 MB_BASE = Mailbox._fields[:26]   # always carried
 MB_PV = Mailbox._fields[26:34]   # carried when cfg.prevote
 MB_TN = Mailbox._fields[34:36]   # carried when cfg.transfer_u32
-MB_FIELDS = MB_BASE + MB_PV + MB_TN   # every slot the port can carry
+MB_FIELDS = MB_BASE + MB_PV + MB_TN   # every [K, K] slot the port carries
+MB_CS = ("is_req_snap_sessions",)    # [K, K, S], carried when clients on
 PRESENT_FIELDS = ("rv_req_present", "rv_resp_present", "ae_req_present",
                   "ae_resp_present", "is_req_present", "is_resp_present",
                   "pv_req_present", "pv_resp_present", "tn_present")
@@ -156,7 +166,8 @@ PRESENT_FIELDS = ("rv_req_present", "rv_resp_present", "ae_req_present",
 def mb_fields(cfg: RaftConfig) -> tuple:
     """The mailbox slots a universe carries, in Mailbox order."""
     return (MB_BASE + (MB_PV if cfg.prevote else ())
-            + (MB_TN if cfg.transfer_u32 else ()))
+            + (MB_TN if cfg.transfer_u32 else ())
+            + (MB_CS if cfg.clients_u32 else ()))
 
 
 def present_fields(cfg: RaftConfig) -> tuple:
@@ -173,10 +184,13 @@ def mailbox_dtype(field: str) -> torch.dtype:
 
 def empty_mailbox(cfg: RaftConfig, lead_shape: tuple, device) -> Mailbox:
     """Zero mailbox with the given leading shape (`(g, k, k)` in flight);
-    the PreVote and TimeoutNow slots exist only when their features are
-    on (None otherwise)."""
-    return Mailbox(**{f: torch.zeros(lead_shape, dtype=mailbox_dtype(f),
-                                     device=device)
+    the PreVote, TimeoutNow and session-table slots exist only when their
+    features are on (None otherwise)."""
+    def extra(f):
+        return (cfg.client_slots,) if f in MB_CS else ()
+
+    return Mailbox(**{f: torch.zeros(lead_shape + extra(f),
+                                     dtype=mailbox_dtype(f), device=device)
                       for f in mb_fields(cfg)})
 
 
@@ -200,6 +214,11 @@ def init(cfg: RaftConfig, n_groups: int | None = None,
     def full(v, *extra):
         return torch.full((g, k) + extra, v, dtype=I32, device=device)
 
+    sess = {}
+    if cfg.clients_u32:
+        # Slots 0..S-1 are born registered with nothing applied.
+        sess = dict(session_seq=full(-1, cfg.client_slots),
+                    snap_session_seq=full(-1, cfg.client_slots))
     nodes = PerNode(
         term=z(I32), voted_for=full(NO_VOTE),
         snap_index=z(I32), snap_term=z(I32), snap_digest=z(U32),
@@ -212,11 +231,13 @@ def init(cfg: RaftConfig, n_groups: int | None = None,
         election_elapsed=z(I32), heartbeat_elapsed=z(I32),
         deadline=deadline, leader_elapsed=z(I32),
         ack_time=full(-1, k), sched_read_index=full(-1),
-        sched_read_reg=z(I32), reads_done=z(I32),
+        sched_read_reg=z(I32), reads_done=z(I32), **sess,
     )
     return State(nodes=nodes, mailbox=empty_mailbox(cfg, (g, k, k), device),
                  alive_prev=torch.ones((g, k), dtype=BOOL, device=device),
-                 group_id=torch.arange(g, dtype=I32, device=device))
+                 group_id=torch.arange(g, dtype=I32, device=device),
+                 clients=(clients_init(cfg, g, device) if cfg.clients_u32
+                          else None))
 
 
 # ------------------------------------------------- carrying state across
@@ -225,7 +246,7 @@ def init(cfg: RaftConfig, n_groups: int | None = None,
 def _map(tree, cls, fn):
     """Rebuild NamedTuple `tree` as `cls`, applying `fn` to its leaves;
     nested NamedTuples map onto the port's class of the same name."""
-    nested = {"nodes": PerNode, "mailbox": Mailbox}
+    nested = {"nodes": PerNode, "mailbox": Mailbox, "clients": ClientState}
     out = {}
     for f in cls._fields:
         v = getattr(tree, f, None)
@@ -251,19 +272,17 @@ def _torch_to_np(t):
 
 
 def from_numpy(tree, device="cuda"):
-    """A State (or a Metrics) of numpy arrays, as `jax.tree.map(np.asarray,
-    jax_state)` gives it, as the port's tensors on `device`."""
-    if hasattr(tree, "nodes"):
-        cls = State
-    else:
-        from raft_tpu_torch.sim.run import Metrics
-        cls = Metrics
-    if getattr(tree, "clients", None) is not None:
-        raise NotImplementedError("client state is not ported")
+    """A State, Metrics or Flight of numpy arrays, as
+    `jax.tree.map(np.asarray, jax_tree)` gives it, as the port's class of
+    the same name on `device`."""
+    from raft_tpu_torch.obs.recorder import Flight
+    from raft_tpu_torch.sim.run import Metrics
+    cls = {c.__name__: c for c in (State, Metrics, Flight)}[
+        type(tree).__name__]
     return _map(tree, cls, lambda a: _np_to_torch(a, torch.device(device)))
 
 
 def to_numpy(tree):
-    """The port's State (or Metrics) as numpy arrays with the JAX
+    """The port's State, Metrics or Flight as numpy arrays with the JAX
     package's dtypes (bool, int32, and uint32 for the digests)."""
     return _map(tree, type(tree), _torch_to_np)

@@ -22,18 +22,25 @@ rewinds volatile state.
 
 The features here (config.py refuses the rest): RequestVote,
 AppendEntries, InstallSnapshot, fire-hose commands, commit/apply/
-compaction, crash/partition/drop faults, and four protocol features,
-each gated statically on its config knob as the JAX package gates it —
-PreVote (`prevote`), leadership transfer (`transfer_prob`), single-server
-membership change (`reconfig_prob`) and scheduled ReadIndex reads
-(`read_every`).
+compaction, crash/partition/drop faults, four protocol features and
+scheduled client traffic, each gated statically on its config knob as
+the JAX package gates it — PreVote (`prevote`), leadership transfer
+(`transfer_prob`), single-server membership change (`reconfig_prob`),
+scheduled ReadIndex reads (`read_every`) and exactly-once client
+sessions (`cfg.clients_u32`: session appends in phase C, the dedup
+filter at apply time, the tables in InstallSnapshot and restart, the
+client transition after the tick).
 """
 
 from __future__ import annotations
 
 import torch
 
-from raft_tpu_torch.config import CONFIG_FLAG, RaftConfig
+from raft_tpu_torch.clients import workload
+from raft_tpu_torch.config import (CONFIG_FLAG, SESSION_FLAG,
+                                   SESSION_SEQ_MASK, SESSION_SEQ_SHIFT,
+                                   SESSION_SID_MASK, SESSION_SID_SHIFT,
+                                   RaftConfig)
 from raft_tpu_torch.core.node import (CANDIDATE, FOLLOWER, LEADER, NO_VOTE,
                                       PRECANDIDATE)
 from raft_tpu_torch.ops import quorum
@@ -82,8 +89,10 @@ def _last_log_term(cfg, ns: PerNode):
 
 
 def _put(out: dict, field: str, dst: int, cond, val):
-    """Masked write of every node's outbox slot to `dst`."""
+    """Masked write of every node's outbox slot to `dst` (a slot may have
+    trailing dims: `cond` broadcasts over them)."""
     a = out[field]
+    cond = cond.reshape(cond.shape + (1,) * (a.dim() - 3))
     a[:, dst, :] = W(cond, val, a[:, dst, :])
 
 
@@ -385,6 +394,12 @@ def _on_is_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
         applied=W(inst, m_si, ns.applied),
         digest=W(inst, m_sd, ns.digest),
     )
+    if cfg.clients_u32:
+        # The snapshot's dedup table installs into both tables.
+        m_sess = ib.is_req_snap_sessions[:, :, src]
+        i1 = inst.unsqueeze(-1)
+        ns = ns._replace(session_seq=W(i1, m_sess, ns.session_seq),
+                         snap_session_seq=W(i1, m_sess, ns.snap_session_seq))
     match = W(stale, 0, W(have, ns.commit, m_si))
     _put(out, "is_resp_present", src, present, True)
     _put(out, "is_resp_term", src, present, ns.term)
@@ -517,6 +532,9 @@ def _phase_t(cfg, ns, out, g, i, t: int):
         _put(out, "is_req_snap_term", p, use_is, ns.snap_term)
         _put(out, "is_req_snap_digest", p, use_is, ns.snap_digest)
         _put(out, "is_req_snap_voters", p, use_is, ns.snap_voters)
+        if cfg.clients_u32:
+            _put(out, "is_req_snap_sessions", p, use_is,
+                 ns.snap_session_seq)
         # No entries ride the message: the receiver pulls (prev,
         # prev + n] from this sender's ring at delivery.
         prev = nip - 1
@@ -583,9 +601,11 @@ def _phase_t(cfg, ns, out, g, i, t: int):
 # ----------------------------------------------------------------- phase C
 
 
-def _phase_c(cfg, ns, g, t: int):
+def _phase_c(cfg, ns, g, t: int, csub=None, cpay=None):
     """Scheduled read registration, the scheduled membership proposal,
-    then fire-hose command appends, by every node that believes itself
+    the pulsed client session ops (`csub`/`cpay`, `[G, S]`, raised by the
+    previous tick's client transition; None with clients off), then
+    fire-hose command appends, by every node that believes itself
     leader, stopping at a full window."""
     lead = ns.role == LEADER
     if cfg.read_every and t % cfg.read_every == 0:
@@ -622,6 +642,20 @@ def _phase_c(cfg, ns, g, t: int):
     last_index = ns.last_index
     log_term, log_payload = ns.log_term, ns.log_payload
     stopped = torch.zeros_like(lead)
+    if cfg.clients_u32:
+        # The pulsed session ops in slot order; duplicates appended by two
+        # transient leaders are safe by the exactly-once fold.
+        for sl in range(cfg.client_slots):
+            idx = last_index + 1
+            room = (idx - ns.snap_index) <= cfg.log_cap
+            want = lead & (csub[:, sl:sl + 1] != 0)
+            do = want & room & ~stopped
+            s = _slot(cfg, idx)
+            log_term = _lset(log_term, s, do, ns.term)
+            log_payload = _lset(log_payload, s, do,
+                                cpay[:, sl:sl + 1].expand_as(last_index))
+            last_index = W(do, idx, last_index)
+            stopped = stopped | (want & ~room)
     for _ in range(cfg.cmds_per_tick):
         idx = last_index + 1
         room = (idx - ns.snap_index) <= cfg.log_cap
@@ -666,17 +700,35 @@ def _phase_a(cfg, ns, i):
         ns = _drop_reads(cfg, ns, demote)
 
     # Apply: commit - applied <= L by the window invariant. Steps past
-    # the batch's largest gap are no-ops, so the loop stops there.
+    # the batch's largest gap are no-ops, so the loop stops there. With
+    # clients on, the exactly-once filter runs at fold time: a session
+    # command folds, and advances its sid's table entry, only if its seq
+    # is above the entry and its sid is one of the S pre-registered ones.
     applied, digest = ns.applied, ns.digest
+    table = ns.session_seq
     steps = int((commit - applied).amax().clamp(0, cfg.log_cap))
     for _ in range(steps):
         idx = applied + 1
         act = idx <= commit
         p = _payload_at(cfg, ns, idx)
-        digest = W(act, trng.digest_update(digest, idx, p), digest)
+        fold = act
+        if cfg.clients_u32:
+            is_sess = ((p & SESSION_FLAG) != 0) & ((p & CONFIG_FLAG) == 0)
+            sid = (p >> SESSION_SID_SHIFT) & SESSION_SID_MASK
+            seq = (p >> SESSION_SEQ_SHIFT) & SESSION_SEQ_MASK
+            known = sid < cfg.client_slots
+            cur = _lget(table, torch.where(known, sid, 0))
+            eff = is_sess & known & (seq > cur)
+            table = _lset(table, sid, act & eff, seq)
+            fold = act & (~is_sess | eff)
+        digest = W(fold, trng.digest_update(digest, idx, p), digest)
         applied = W(act, idx, applied)
 
     compact = (commit - ns.snap_index) >= cfg.compact_every
+    if cfg.clients_u32:
+        # Compaction folds the live table into the snapshot's.
+        ns = ns._replace(session_seq=table, snap_session_seq=W(
+            compact.unsqueeze(-1), table, ns.snap_session_seq))
     ns = ns._replace(
         commit=commit, applied=applied, digest=digest,
         snap_term=W(compact, _term_at(cfg, ns, commit), ns.snap_term),
@@ -712,7 +764,8 @@ def _phase_a(cfg, ns, i):
 # ------------------------------------------------------------ per-node tick
 
 
-def _node_tick(cfg, nodes: PerNode, inbox: Mailbox, g, i, t: int):
+def _node_tick(cfg, nodes: PerNode, inbox: Mailbox, g, i, t: int,
+               csub=None, cpay=None):
     """Every replica's phases D/T/C/A at once. Returns the new nodes and
     the outbox ([G, dst, src])."""
     gsz, k = nodes.role.shape
@@ -724,7 +777,7 @@ def _node_tick(cfg, nodes: PerNode, inbox: Mailbox, g, i, t: int):
         for src in range(cfg.k):
             ns = handler(cfg, ns, out, g, i, src, inbox, gl)
     ns = _phase_t(cfg, ns, out, g, i, t)
-    ns = _phase_c(cfg, ns, g, t)
+    ns = _phase_c(cfg, ns, g, t, csub, cpay)
     ns = _phase_a(cfg, ns, i)
     return ns, Mailbox(**out)
 
@@ -755,6 +808,10 @@ def _apply_restart(cfg, nodes: PerNode, g_grid, i_grid, edge):
         ack_time=W(e1, -1, nodes.ack_time),
         sched_read_index=W(edge, -1, nodes.sched_read_index),
         reads_done=W(edge, 0, nodes.reads_done),
+        # The live dedup table is state-machine state: it rewinds to the
+        # snapshot's, like the digest.
+        session_seq=(W(e1, nodes.snap_session_seq, nodes.session_seq)
+                     if cfg.clients_u32 else nodes.session_seq),
     )
 
 
@@ -786,7 +843,15 @@ def tick(cfg: RaftConfig, st: State, t: int) -> State:
     nodes = _apply_restart(cfg, st.nodes, g_grid, i_grid,
                            alive_now & ~st.alive_prev)
     inbox = _filter_mailbox(cfg, st.mailbox, t, alive_now, st.group_id)
-    new_nodes, outbox = _node_tick(cfg, nodes, inbox, g_grid, i_grid, t)
+    csub = cpay = None
+    if cfg.clients_u32:
+        # The pulses raised by the previous tick's client transition, with
+        # their payloads ([G, S]), broadcast to every node of the group.
+        scol = torch.arange(cfg.client_slots, dtype=I32, device=dev)[None, :]
+        csub, cpay = workload.submit_payloads(cfg, st.clients,
+                                              st.group_id[:, None], scol)
+    new_nodes, outbox = _node_tick(cfg, nodes, inbox, g_grid, i_grid, t,
+                                   csub, cpay)
 
     # Dead nodes: state frozen, sends erased; their in-flight mail stays.
     def freeze(new, old):
@@ -799,6 +864,16 @@ def tick(cfg: RaftConfig, st: State, t: int) -> State:
     src_alive = alive_now[:, None, :]   # sender axis is 2 in [G, dst, src]
     outbox = outbox._replace(**{f: getattr(outbox, f) & src_alive
                                 for f in present_fields(cfg)})
+    clients = st.clients
+    if cfg.clients_u32:
+        # The client transition on the post-tick (post-freeze) state: acks
+        # come from the group's applied dedup tables.
+        clients = workload.client_update(
+            cfg, clients, workload.table_max(new_nodes.session_seq, 1),
+            st.group_id[:, None],
+            torch.arange(cfg.client_slots, dtype=I32, device=dev)[None, :],
+            t)
     return State(nodes=new_nodes, mailbox=outbox,
-                 alive_prev=alive_now.contiguous(), group_id=st.group_id)
+                 alive_prev=alive_now.contiguous(), group_id=st.group_id,
+                 clients=clients)
 

@@ -20,3 +20,5 @@ TAG_RECONFIG = 7       # per-group per-epoch membership-change proposal?
 TAG_RECONFIG_NODE = 8  # which node's membership the proposal toggles
 TAG_TRANSFER = 9       # per-group per-epoch leadership-transfer attempt?
 TAG_TRANSFER_NODE = 10  # which node the transfer hands leadership to
+TAG_CLIENT_ARRIVAL = 11  # per-(group, sid, tick) open-loop client arrival
+TAG_CLIENT_VAL = 12      # 10-bit value of a client op (sid, seq)

@@ -133,6 +133,17 @@ def transfer_target(seed, g, epoch, k: int):
     return _i32(hash_u32(seed, _r.TAG_TRANSFER_NODE, g, epoch) % k)
 
 
+def client_arrives(seed, g, sid, tick, clients_u32: int):
+    if clients_u32 == 0:
+        return _zeros_bool(g, sid, tick)
+    return hash_u32(seed, _r.TAG_CLIENT_ARRIVAL, g, sid, tick) < clients_u32
+
+
+def client_val(seed, g, sid, seq):
+    # A pure function of the op identity: a retry carries the same value.
+    return _i32(hash_u32(seed, _r.TAG_CLIENT_VAL, g, sid, seq) & 0x3FF)
+
+
 def digest_update(digest, index, payload):
     return mix32(_mulc(_u32(digest), _r.GOLD)
                  + mix32(_mulc(_u32(index), _r.GOLD) + _u32(payload)))

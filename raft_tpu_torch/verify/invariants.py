@@ -1,6 +1,6 @@
-"""Raft's safety properties as predicates over torch tensors: the four
-the per-tick safety fold checks (sim/check.py `tick_safety`), term for
-term the JAX package's `verify/invariants.py`.
+"""Raft's safety properties as predicates over torch tensors: those the
+per-tick safety fold checks (sim/check.py `tick_safety`), term for term
+the JAX package's `verify/invariants.py`.
 
 Axis convention: the node axis is LAST for scalar leaves (`[..., K]`),
 second-to-last for ring leaves (`[..., K, L]`). Predicates return
@@ -92,4 +92,20 @@ def leader_completeness(role, term, commit, last_index, snap_index,
                 m, log_payload[..., a, :] == log_payload[..., b, :],
                 True).all(dim=-1)
             ok = ok & (~cond | (holds & agree))
+    return ok
+
+
+def client_safety(applied, session_seq, done):
+    """The exactly-once invariant: nodes with the same applied prefix
+    hold identical (sid -> seq) dedup tables, and no table entry exceeds
+    the slot's issued frontier. `session_seq` is `[..., K, S]`, `done`
+    `[..., S]`."""
+    k = session_seq.shape[-2]
+    ok = (session_seq <= done[..., None, :]).all(dim=-1).all(dim=-1)
+    for a in range(k):
+        for b in range(a + 1, k):
+            clash = ((applied[..., a] == applied[..., b])
+                     & (session_seq[..., a, :]
+                        != session_seq[..., b, :]).any(dim=-1))
+            ok = ok & ~clash
     return ok

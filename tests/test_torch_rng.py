@@ -30,7 +30,8 @@ def _np(x):
 def test_constants_match_reference():
     for name in ("GOLD", "TAG_TIMEOUT", "TAG_DROP", "TAG_CRASH", "TAG_PART",
                  "TAG_PART_SIDE", "TAG_CMD", "TAG_RECONFIG",
-                 "TAG_RECONFIG_NODE", "TAG_TRANSFER", "TAG_TRANSFER_NODE"):
+                 "TAG_RECONFIG_NODE", "TAG_TRANSFER", "TAG_TRANSFER_NODE",
+                 "TAG_CLIENT_ARRIVAL", "TAG_CLIENT_VAL"):
         assert getattr(trng_consts, name) == getattr(prng, name), name
     assert trng_consts.SEED0 == prng._SEED0
 
@@ -160,3 +161,26 @@ def test_schedule_draws_parity(kind, prob):
             np.asarray(getattr(jrng, f"{kind}_target")(11, g, epoch, k)))
     assert int(getattr(trng, f"{kind}_target")(11, 5, 7, 5)) == \
         getattr(prng, f"{kind}_target")(11, 5, 7, 5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2, 0.5])
+def test_client_draws_parity(rate):
+    """Arrivals on a (group, sid, tick) grid and op values on a
+    (group, sid, seq) grid, against jrng and the Python ints."""
+    clients_u32 = min(int(rate * 2 ** 32), 0xFFFFFFFF)
+    g = np.arange(40, dtype=np.int32)[:, None, None]
+    sid = np.arange(16, dtype=np.int32)[None, :, None]
+    t = np.arange(0, 300, 7, dtype=np.int32)[None, None, :]
+    got = trng.client_arrives(9, _t(g), _t(sid), _t(t), clients_u32)
+    want = np.asarray(jrng.client_arrives(9, g, sid, t, clients_u32))
+    np.testing.assert_array_equal(_np(got), want)
+    if rate:
+        assert 0 < want.mean() < 1
+        assert bool(got[3, 4, 5]) == prng.client_arrives(9, 3, 4, 35,
+                                                         clients_u32)
+    seq = np.arange(0, 1024, 31, dtype=np.int32)[None, None, :]
+    val = trng.client_val(9, _t(g), _t(sid), _t(seq))
+    assert val.dtype == torch.int32 and int(val.max()) <= 0x3FF
+    np.testing.assert_array_equal(
+        _np(val), np.asarray(jrng.client_val(9, g, sid, seq)))
+    assert int(val[2, 7, 3]) == prng.client_val(9, 2, 7, 93)

@@ -11,6 +11,8 @@ from pathlib import Path
 
 import pytest
 
+from raft_tpu_torch.clients import state as cstate
+from raft_tpu_torch.obs import recorder
 from raft_tpu_torch.sim import kernel, run, state
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -48,8 +50,10 @@ def test_scan_sees_imports():
     assert {"jax", "raft_tpu", "raft_tpu_torch"} <= roots
 
 
-@pytest.mark.parametrize("fn", [state.init, run.metrics_init],
-                         ids=["state.init", "run.metrics_init"])
+@pytest.mark.parametrize("fn", [state.init, run.metrics_init,
+                                cstate.clients_init, recorder.flight_init],
+                         ids=["state.init", "run.metrics_init",
+                              "clients_init", "flight_init"])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -71,6 +75,15 @@ def test_wire_fields_follow_the_kernel_enum():
     enum = [w.strip() for w in body.split("{", 1)[1].replace("\n", " ")
             .split(",") if w.strip()]
     assert enum == ["F_" + f.upper() for f in kernel.WIRE_FIELDS[:len(enum)]]
+    tail = text[text.index("F_MB0,"):text.index("N_FIELDS\n")]
+    tail = [w.split("=")[0].split("//")[0].strip()
+            for w in "".join(ln.split("//")[0] + " "
+                             for ln in tail.splitlines()).split(",")]
+    n_mb = len(state.MB_FIELDS)
+    assert [w for w in tail[1:] if w] == [
+        "F_" + f.upper().replace(".", "_")
+        for f in kernel.WIRE_FIELDS[len(enum) + n_mb:]]
+    assert f"F_IS_REQ_SNAP_SESSIONS = F_MB0 + {n_mb}," in text
     mb = text[text.index("enum Mb {"):text.index("N_MB\n")]
     mb_enum = [w.strip() for w in mb.split("{", 1)[1].replace("\n", " ")
                .split(",") if w.strip()]

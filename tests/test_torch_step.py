@@ -5,7 +5,7 @@ headline width, the config-4 fault knobs at headline width, the
 election-rounds knobs (no commands: leaders only heartbeat), and the
 multi-source AppendEntries universe. Also: every feature the port does
 not carry yet is refused when the config is built, and the config
-validation is the reference's."""
+validation (the client-traffic rules included) is the reference's."""
 
 from __future__ import annotations
 
@@ -63,8 +63,6 @@ def test_tick_matches_jax_every_tick(name):
 
 
 UNPORTED = [
-    dict(sessions=True, cmds_per_tick=0),
-    dict(sessions=True, cmds_per_tick=0, client_rate=0.1),
     dict(nemesis=((1, 0, 10, 1, 1, 1, 0, 0),)),
     dict(narrow_scalars=True), dict(narrow_ring=True),
     dict(narrow_mailbox=True), dict(narrow_clients=True),
@@ -79,9 +77,17 @@ def test_unported_feature_refused_at_construction(kw):
         RaftConfig(**kw)
 
 
+CLIENTS = dict(sessions=True, cmds_per_tick=0, client_rate=0.1)
+
+
 @pytest.mark.parametrize("kw", [dict(log_cap=8), dict(election_min=4),
                                 dict(max_entries_per_msg=40),
-                                dict(k=0), dict(heartbeat_every=0)])
+                                dict(k=0), dict(heartbeat_every=0),
+                                dict(sessions=True, cmds_per_tick=1),
+                                dict(client_rate=0.1),
+                                dict(CLIENTS, client_slots=0),
+                                dict(CLIENTS, client_slots=17),
+                                dict(client_queue_cap=2)])
 def test_validation_matches_reference(kw):
     with pytest.raises(AssertionError):
         JaxConfig(**kw)
@@ -93,8 +99,10 @@ def test_config_fields_and_thresholds_match_reference():
     import dataclasses
     assert [f.name for f in dataclasses.fields(RaftConfig)] == \
         [f.name for f in dataclasses.fields(JaxConfig)]
-    kw = dict(seed=43, crash_prob=0.3, partition_prob=0.2, drop_prob=1.0)
+    kw = dict(seed=43, crash_prob=0.3, partition_prob=0.2, drop_prob=1.0,
+              sessions=True, cmds_per_tick=0, client_rate=0.37,
+              client_queue_cap=3)
     a, b = RaftConfig(**kw), JaxConfig(**kw)
     for p in ("crash_u32", "partition_u32", "drop_u32", "majority",
-              "full_mask"):
+              "full_mask", "clients_u32"):
         assert getattr(a, p) == getattr(b, p), p
