@@ -8,8 +8,9 @@ counter-based hashes (utils/trng.py).
 
 The port runs the default protocol with crash, partition and drop
 faults, PreVote, leadership transfer, single-server membership change,
-scheduled ReadIndex reads and scheduled exactly-once client traffic
-(sessions, with bounded admission). Every other feature raises
+scheduled ReadIndex reads, scheduled exactly-once client traffic
+(sessions, with bounded admission) and nemesis programs (gray failures
+and storage pressure, `nemesis/program.py`). Every other feature raises
 `NotImplementedError` when the config is built, never partway through a
 run (`_UNPORTED`).
 Validation failures raise `ValueError` (the JAX package asserts).
@@ -18,6 +19,8 @@ Validation failures raise `ValueError` (the JAX package asserts).
 from __future__ import annotations
 
 import dataclasses
+
+from raft_tpu_torch.utils import rng as _nem
 
 _U32 = 0xFFFFFFFF
 
@@ -51,7 +54,6 @@ def _prob_to_u32(p: float) -> int:
 # (field, predicate on its value, what it is) for every feature the
 # port does not carry yet. Each is refused at construction.
 _UNPORTED = (
-    ("nemesis", lambda v: len(v) > 0, "the nemesis program"),
     ("narrow_scalars", lambda v: v, "the narrow resident layout"),
     ("narrow_ring", lambda v: v, "the narrow resident layout"),
     ("narrow_mailbox", lambda v: v, "the narrow resident layout"),
@@ -122,6 +124,7 @@ class RaftConfig:
     nemesis: tuple = ()
 
     def __post_init__(self):
+        object.__setattr__(self, "nemesis", _check_program(self.nemesis))
         for field, on, what in _UNPORTED:
             if on(getattr(self, field)):
                 raise NotImplementedError(
@@ -199,6 +202,76 @@ class RaftConfig:
     @property
     def partition_u32(self) -> int:
         return _prob_to_u32(self.partition_prob)
+
+    # The nemesis program split by seam: link clauses gate the delivery
+    # filter, storm clauses the aliveness mask, skew clauses the deadline
+    # draw, disk clauses every append, compaction clauses phase A's
+    # snapshot step. Each seam is gated on its subprogram being non-empty.
+
+    @property
+    def nem_link(self) -> tuple:
+        return _kinds(self.nemesis, _nem.NEM_LINK_KINDS)
+
+    @property
+    def nem_crash(self) -> tuple:
+        return _kinds(self.nemesis, _nem.NEM_CRASH_KINDS)
+
+    @property
+    def nem_skew(self) -> tuple:
+        return _kinds(self.nemesis, _nem.NEM_TIMING_KINDS)
+
+    @property
+    def nem_disk(self) -> tuple:
+        return _kinds(self.nemesis, _nem.NEM_DISK_KINDS)
+
+    @property
+    def nem_compact(self) -> tuple:
+        return _kinds(self.nemesis, _nem.NEM_COMPACT_KINDS)
+
+
+def _kinds(prog: tuple, kinds: tuple) -> tuple:
+    return tuple(c for c in prog if c[0] in kinds)
+
+
+def _check_program(prog) -> tuple:
+    """A nemesis program as a tuple of int 8-tuples, each clause checked
+    as the JAX package checks it (`ValueError` on a malformed one)."""
+    norm = []
+    for c in prog:
+        c = tuple(int(x) for x in c)
+        _check(len(c) == 8, f"nemesis clause {c} must have 8 fields "
+                            f"(kind, t0, t1, group_u32, p_u32, a, b, cid)")
+        kind, t0, t1, group_u32, p_u32, a, b, cid = c
+        _check(kind in _nem.NEM_KINDS, f"nemesis clause kind {kind} unknown "
+                                       f"(known: {_nem.NEM_KINDS})")
+        _check(0 <= t0 <= t1, f"nemesis clause span [{t0}, {t1}) invalid")
+        _check(0 <= group_u32 <= _U32 and 0 <= p_u32 <= _U32,
+               f"nemesis clause thresholds ({group_u32}, {p_u32}) outside "
+               f"u32")
+        # The engines carry a and b in u32 lanes (the skew amount in i32):
+        # an out-of-range value would wrap into a different schedule.
+        if kind == _nem.NEM_SKEW:
+            _check(-2 ** 31 <= a < 2 ** 31,
+                   f"nemesis skew amount {a} outside i32")
+        else:
+            _check(0 <= a <= _U32, f"nemesis clause a={a} outside u32")
+        _check(0 <= b <= _U32, f"nemesis clause b={b} outside u32")
+        _check(kind not in (_nem.NEM_FLAKY, _nem.NEM_STORM, _nem.NEM_WAVE,
+                            _nem.NEM_DISK, _nem.NEM_COMPACT) or a >= 1,
+               f"nemesis clause kind {kind} needs its epoch/period a >= 1, "
+               f"got {a}")
+        _check(kind != _nem.NEM_SLOW or a in (1, 2, 3),
+               f"nemesis slow-follower clause needs direction a in "
+               f"(1, 2, 3), got {a}")
+        _check(kind != _nem.NEM_WAN or a >= 2,
+               f"nemesis WAN clause needs >= 2 sites, got {a}")
+        _check(cid >= 0, f"nemesis clause cid {cid} unassigned: build "
+                         f"programs with nemesis.program()")
+        norm.append(c)
+    _check(len({c[7] for c in norm}) == len(norm),
+           "nemesis clause cids must be unique: a duplicate cid aliases two "
+           "clauses' draws")
+    return tuple(norm)
 
 
 def _check(ok: bool, msg: str) -> None:

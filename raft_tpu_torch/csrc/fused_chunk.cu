@@ -10,17 +10,19 @@
 // leadership transfer (TimeoutNow), single-server membership change and
 // scheduled ReadIndex reads — the scheduled exactly-once client traffic
 // (session appends, the dedup filter, the client transition, the ack-latency
-// histogram and the exactly-once safety clause) and the flight-recorder ring.
+// histogram and the exactly-once safety clause), the flight-recorder ring and
+// the nemesis program's seams (gray failures and storage pressure).
 // It computes what `raft_tpu_torch.sim.run.run` (with a flight:
 // `obs.recorder.run_recorded`) computes over the same ticks (the plain
 // PyTorch tick, sim/step.py), bit for bit; chip_smoke.py holds the two equal
 // on the card.
 //
-// Features. Each protocol feature and the clients are a compile-time flag
-// (FC_PREVOTE, FC_TRANSFER, FC_RECONFIG, FC_READS, FC_CLIENTS, set by
-// kernel.py per build) guarding its code with `if constexpr`: the build with
-// all five off carries none of their code, branches or mailbox rows, and the
-// launcher refuses a config whose flags differ from the build's. The
+// Features. Each protocol feature, the clients and the nemesis program are a
+// compile-time flag (FC_PREVOTE, FC_TRANSFER, FC_RECONFIG, FC_READS,
+// FC_CLIENTS, FC_NEMESIS, set by kernel.py per build) guarding its code with
+// `if constexpr`: the build with all six off carries none of their code,
+// branches or mailbox rows, and the launcher refuses a config whose flags
+// differ from the build's. The
 // PreVote/TimeoutNow mailbox slots ride the wire, and the outbox frame, only
 // when their flags are on; the voter set is an i32 bitmask (k <= 8 here)
 // derived from the node's own ring by a scan of the live window, never
@@ -39,6 +41,17 @@
 // appends them in phase C, phase A folds a session entry only if its seq
 // advances its sid's table entry, and the client transition runs on the
 // post-tick tables. Ack latencies go to `acc` with integer atomics.
+//
+// Nemesis. The program's clauses arrive as launch data (`Args::nem`, at
+// most NEM_MAX), grouped by seam on the host so each seam walks only its
+// own clauses: link clauses mask the per-destination delivery filter,
+// crash storms the aliveness mask before the restart edge, skew clauses
+// every deadline draw (the timer reset and the restart), disk-full clauses
+// every append of the node (computed once per node per tick, used in the
+// AppendEntries walk and in phase C), compaction clauses phase A's
+// snapshot step. Each clause's per-group participation is hashed once per
+// launch into a bit mask. Every draw is the (seed, TAG_NEM_*, cid, coords)
+// hash of utils/trng.py `nem_*`, taken only where its clause is active.
 //
 // Design. Groups never talk to each other, so each thread steps its own
 // group through the tick loop sequentially: nodes 0..K-1, each through the
@@ -95,6 +108,9 @@
 #ifndef FC_CLIENTS
 #define FC_CLIENTS 0
 #endif
+#ifndef FC_NEMESIS
+#define FC_NEMESIS 0
+#endif
 
 namespace {
 
@@ -103,10 +119,12 @@ constexpr bool TRANSFER = FC_TRANSFER != 0;
 constexpr bool RECONFIG = FC_RECONFIG != 0;
 constexpr bool READS = FC_READS != 0;
 constexpr bool CLIENTS = FC_CLIENTS != 0;
+constexpr bool NEMESIS = FC_NEMESIS != 0;
 
 constexpr int KMAX = 8;    // kernel.py refuses larger k
 constexpr int LMAX = 64;   // kernel.py refuses larger log_cap
 constexpr int SMAX = 16;   // the config refuses more client slots
+constexpr int NEM_MAX = 16;   // kernel.py refuses longer nemesis programs
 
 constexpr uint32_t GOLD = 0x9E3779B9u;
 constexpr uint32_t SEED0 = 0x243F6A88u;
@@ -114,7 +132,15 @@ constexpr uint32_t TAG_TIMEOUT = 1, TAG_DROP = 2, TAG_CRASH = 3,
                    TAG_PART = 4, TAG_PART_SIDE = 5, TAG_CMD = 6,
                    TAG_RECONFIG = 7, TAG_RECONFIG_NODE = 8, TAG_TRANSFER = 9,
                    TAG_TRANSFER_NODE = 10, TAG_CLIENT_ARRIVAL = 11,
-                   TAG_CLIENT_VAL = 12;
+                   TAG_CLIENT_VAL = 12, TAG_NEM_GROUP = 13, TAG_NEM_NODE = 14,
+                   TAG_NEM_LINK = 15, TAG_NEM_CRASH = 16, TAG_NEM_SIDE = 17,
+                   TAG_NEM_BURST = 18, TAG_NEM_DISK = 19,
+                   TAG_NEM_COMPACT = 20;
+// Nemesis clause kinds, and a clause's eight words.
+constexpr uint32_t NEM_SLOW = 1, NEM_FLAKY = 2, NEM_WAN = 3, NEM_WAVE = 6;
+enum NemWord { NK, NT0, NT1, NGROUP, NP, NA, NB, NCID };
+// The seams, in the order kernel.py groups the clauses.
+enum NemSeam { NS_LINK, NS_CRASH, NS_SKEW, NS_DISK, NS_COMPACT, N_SEAMS };
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, PRECANDIDATE = 3,
               NO_VOTE = -1;
 constexpr int CONFIG_FLAG = 1 << 30;   // membership entry: low k bits voters
@@ -189,7 +215,8 @@ enum Param {
   P_HEARTBEAT, P_COMPACT, P_CMDS, P_CRASH_U32, P_CRASH_EPOCH,
   P_PARTITION_U32, P_PARTITION_EPOCH, P_DROP_U32, P_MAJORITY, P_FULL_MASK,
   P_HIST, P_N_WORDS, P_DB_START, P_DB_WORDS, P_T0, P_N_TICKS,
-  P_PREVOTE, P_TRANSFER, P_RECONFIG, P_READS, P_CLIENTS, P_TRANSFER_U32,
+  P_PREVOTE, P_TRANSFER, P_RECONFIG, P_READS, P_CLIENTS, P_NEMESIS,
+  P_TRANSFER_U32,
   P_TRANSFER_EPOCH, P_RECONFIG_U32, P_RECONFIG_EPOCH, P_MIN_VOTERS,
   P_READ_EVERY, P_S, P_CLIENTS_U32, P_BACKOFF, P_CAP, P_RING,
   N_PARAMS
@@ -216,6 +243,13 @@ struct Args {
   uint32_t clients_u32;
   int backoff, cap;   // client retry backoff, admission cap (0 = off)
   int ring;           // flight ring length, 0 = no flight
+  // The nemesis program, clauses grouped by seam: seam s owns rows
+  // [start[s], start[s + 1]). Times are clamped to [0, 2**31 - 1] and the
+  // skew amount is the int32 bit pattern.
+  struct {
+    int start[N_SEAMS + 1];
+    uint32_t c[NEMESIS ? NEM_MAX : 1][8];
+  } nem;
 };
 
 // ----------------------------------------------------------------- hashes
@@ -291,6 +325,15 @@ struct ClientLanes {
 struct NoClientLanes {};
 using Clients = std::conditional_t<CLIENTS, ClientLanes, NoClientLanes>;
 
+// The group's nemesis lanes (nemesis builds only): which clauses the group
+// takes part in (bit = table row, once per launch) and which nodes' disks
+// are full this tick (bit = node).
+struct NemLanes {
+  unsigned part, full;
+};
+struct NoNemLanes {};
+using Nem = std::conditional_t<NEMESIS, NemLanes, NoNemLanes>;
+
 struct Group {
   const Args& a;
   int* st;        // the static region of the output wire
@@ -318,14 +361,152 @@ __device__ __forceinline__ int election_deadline(const Args& a, uint32_t gid,
   return static_cast<int>(static_cast<uint32_t>(a.election_min) + r);
 }
 
+// ------------------------------------------------------------ nemesis seams
+// (templates over the lanes' type: a build without nemesis never
+// instantiates them)
+
+template <class NM>
+__device__ __forceinline__ bool nem_active(const Args& a, const NM& nm, int j,
+                                           uint32_t tu) {
+  return ((nm.part >> j) & 1u) && tu >= a.nem.c[j][NT0] &&
+         tu < a.nem.c[j][NT1];
+}
+
+// The participation mask: hash(seed, TAG_NEM_GROUP, cid, g) < group_u32.
+template <class NM>
+__device__ void nem_participate(const Args& a, NM& nm, uint32_t gid) {
+  nm.part = 0;
+  for (int j = 0; j < a.nem.start[N_SEAMS]; ++j)
+    if (hash_u32(a.seed, TAG_NEM_GROUP, a.nem.c[j][NCID], gid) <
+        a.nem.c[j][NGROUP])
+      nm.part |= 1u << j;
+}
+
+// blk[d] bit s: an active link clause drops s -> d this tick.
+template <class NM>
+__device__ void nem_links(const Args& a, const NM& nm, uint32_t gid,
+                          uint32_t tu, unsigned* blk) {
+  const int K = a.K;
+  const uint32_t k = static_cast<uint32_t>(K);
+  for (int d = 0; d < K; ++d) blk[d] = 0;
+  for (int j = a.nem.start[NS_LINK]; j < a.nem.start[NS_LINK + 1]; ++j) {
+    if (!nem_active(a, nm, j, tu)) continue;
+    const uint32_t* c = a.nem.c[j];
+    const uint32_t cid = c[NCID], A = c[NA], B = c[NB];
+    unsigned hit[KMAX];   // by destination, bit = source
+    for (int d = 0; d < K; ++d) hit[d] = 0;
+    if (c[NK] == NEM_SLOW) {
+      const int target = static_cast<int>(
+          hash_u32(a.seed, TAG_NEM_NODE, cid, gid) % k);
+      for (int d = 0; d < K; ++d)
+        for (int s = 0; s < K; ++s)
+          if (((A & 1u) && s == target) || ((A & 2u) && d == target))
+            hit[d] |= 1u << s;
+    } else if (c[NK] == NEM_FLAKY) {
+      if (K < 2) continue;   // a 1-node group has no links
+      const uint32_t s0 = hash_u32(a.seed, TAG_NEM_NODE, cid, gid, 0u) % k;
+      const uint32_t d0 =
+          (s0 + 1u + hash_u32(a.seed, TAG_NEM_NODE, cid, gid, 1u) % (k - 1u)) %
+          k;
+      if (hash_u32(a.seed, TAG_NEM_BURST, cid, gid, tu / A) < B)
+        hit[d0] |= 1u << s0;
+    } else if (c[NK] == NEM_WAN) {
+      uint32_t site[KMAX];
+      for (int n = 0; n < K; ++n)
+        site[n] = hash_u32(a.seed, TAG_NEM_NODE, cid, gid, n) % A;
+      for (int d = 0; d < K; ++d)
+        for (int s = 0; s < K; ++s)
+          if (site[s] != site[d]) hit[d] |= 1u << s;
+    } else {   // NEM_WAVE: inside the sweeping window, cross-side links
+      if ((tu + gid) % A >= B) continue;
+      unsigned side = 0;
+      for (int n = 0; n < K; ++n)
+        side |= (hash_u32(a.seed, TAG_NEM_SIDE, cid, gid, tu / A, n) & 1u)
+                << n;
+      for (int d = 0; d < K; ++d)
+        for (int s = 0; s < K; ++s)
+          if (((side >> s) ^ (side >> d)) & 1u) hit[d] |= 1u << s;
+    }
+    for (int d = 0; d < K; ++d)   // the link draw, on the links hit
+      for (int s = 0; s < K; ++s)
+        if (s != d && ((hit[d] >> s) & 1u) &&
+            hash_u32(a.seed, TAG_NEM_LINK, cid, gid, tu, s, d) < c[NP])
+          blk[d] |= 1u << s;
+  }
+}
+
+// The nodes a crash storm holds down this tick.
+template <class NM>
+__device__ unsigned nem_down(const Args& a, const NM& nm, uint32_t gid,
+                             uint32_t tu) {
+  unsigned down = 0;
+  for (int j = a.nem.start[NS_CRASH]; j < a.nem.start[NS_CRASH + 1]; ++j) {
+    if (!nem_active(a, nm, j, tu)) continue;
+    const uint32_t* c = a.nem.c[j];
+    for (int k = 0; k < a.K; ++k)
+      if (hash_u32(a.seed, TAG_NEM_CRASH, c[NCID], gid, k, tu / c[NA]) <
+          c[NP])
+        down |= 1u << k;
+  }
+  return down;
+}
+
+// The nodes whose disk is full this tick: each clause's target node,
+// during the sub-epochs that fire.
+template <class NM>
+__device__ unsigned nem_full(const Args& a, const NM& nm, uint32_t gid,
+                             uint32_t tu) {
+  unsigned full = 0;
+  for (int j = a.nem.start[NS_DISK]; j < a.nem.start[NS_DISK + 1]; ++j) {
+    if (!nem_active(a, nm, j, tu)) continue;
+    const uint32_t* c = a.nem.c[j];
+    if (hash_u32(a.seed, TAG_NEM_DISK, c[NCID], gid, tu / c[NA]) < c[NP])
+      full |= 1u << (hash_u32(a.seed, TAG_NEM_NODE, c[NCID], gid) %
+                     static_cast<uint32_t>(a.K));
+  }
+  return full;
+}
+
+template <class NM>
+__device__ bool nem_compact_block(const Args& a, const NM& nm, uint32_t gid,
+                                  int i, uint32_t tu) {
+  for (int j = a.nem.start[NS_COMPACT]; j < a.nem.start[NS_COMPACT + 1]; ++j)
+    if (nem_active(a, nm, j, tu) &&
+        hash_u32(a.seed, TAG_NEM_COMPACT, a.nem.c[j][NCID], gid, i,
+                 tu / a.nem.c[j][NA]) < a.nem.c[j][NP])
+      return true;
+  return false;
+}
+
+// A deadline drawn by node i at tick tu, shifted by the active skew
+// clauses (the signed amounts summed in int32) and clamped at 1.
+template <class NM>
+__device__ int nem_skewed(const Args& a, const NM& nm, uint32_t gid, int i,
+                          uint32_t tu, int deadline) {
+  if (a.nem.start[NS_SKEW] == a.nem.start[NS_SKEW + 1]) return deadline;
+  uint32_t extra = 0;
+  for (int j = a.nem.start[NS_SKEW]; j < a.nem.start[NS_SKEW + 1]; ++j)
+    if (nem_active(a, nm, j, tu) &&
+        hash_u32(a.seed, TAG_NEM_NODE, a.nem.c[j][NCID], gid, i) <
+            a.nem.c[j][NP])
+      extra += a.nem.c[j][NA];
+  return max(1, static_cast<int>(static_cast<uint32_t>(deadline) + extra));
+}
+
 __device__ __forceinline__ int term_at(const Node& n, int idx, int L) {
   return idx == n.snap_index ? n.snap_term : n.lt[slot_of(idx, L)];
 }
 
+// One counted deadline draw, made at tick t.
+template <class NM>
 __device__ __forceinline__ void reset_timer(const Args& a, Node& n,
-                                            uint32_t gid, int i) {
+                                            uint32_t gid, int i, int t,
+                                            const NM& nm) {
   n.ee = 0;
   n.deadline = election_deadline(a, gid, i, n.rng_draws);
+  if constexpr (NEMESIS)
+    n.deadline = nem_skewed(a, nm, gid, i, static_cast<uint32_t>(t),
+                            n.deadline);
   n.rng_draws += 1;
 }
 
@@ -408,13 +589,15 @@ __device__ __forceinline__ void become_leader(const Args& a, Node& n, int i) {
   if (n.last_index > n.commit) n.lt[slot_of(n.last_index, a.L)] = n.term;
 }
 
+template <class NM>
 __device__ __forceinline__ void accept_leader(const Args& a, Node& n,
-                                              uint32_t gid, int i, int src) {
+                                              uint32_t gid, int i, int src,
+                                              int t, const NM& nm) {
   n.role = FOLLOWER;
   n.leader_id = src;
   n.votes = 0;
   n.le = 0;
-  reset_timer(a, n, gid, i);
+  reset_timer(a, n, gid, i, t, nm);
 }
 
 // (majority-1)-th largest peer match index, the leader ranked first.
@@ -448,15 +631,17 @@ __device__ __forceinline__ int commit_candidate_voters(const Args& a,
   return v[voter_majority(voters) - 1];
 }
 
+template <class NM>
 __device__ __forceinline__ void start_election(const Args& a, Node& n,
                                                uint32_t gid, int i,
-                                               int (*ob)[KMAX]) {
+                                               int (*ob)[KMAX], int t,
+                                               const NM& nm) {
   n.term += 1;
   n.role = CANDIDATE;
   n.voted_for = i;
   n.leader_id = NO_VOTE;
   n.votes = 1u << i;
-  reset_timer(a, n, gid, i);
+  reset_timer(a, n, gid, i, t, nm);
   bool won = vote_quorum(a, n, n.votes);   // single-voter win
   if (won) become_leader(a, n, i);
   if (won) return;
@@ -472,12 +657,14 @@ __device__ __forceinline__ void start_election(const Args& a, Node& n,
 
 // ------------------------------------------------------------ one node
 
-template <class N = Node, class CL = Clients>
+template <class N = Node, class CL = Clients, class NM = Nem>
 __device__ void node_step(const Group& gr, int i, unsigned keep,
-                          bool alive, int t, const CL& cl) {
+                          bool alive, int t, const CL& cl, const NM& nm) {
   const Args& a = gr.a;
   const int K = a.K, L = a.L, S = a.S;
   const uint32_t gid = gr.gid, tu = static_cast<uint32_t>(t);
+  bool full = false;   // a full disk fails every append of this node
+  if constexpr (NEMESIS) full = (nm.full >> i) & 1u;
   N n;
   n.term = gr.s(F_TERM, i);
   n.voted_for = gr.s(F_VOTED_FOR, i);
@@ -540,7 +727,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
                  (n.voted_for == NO_VOTE || n.voted_for == s) && log_ok;
     if (grant) {
       n.voted_for = s;
-      reset_timer(a, n, gid, i);
+      reset_timer(a, n, gid, i, t, nm);
     }
     ob[RV_RESP_PRESENT][s] = 1;
     ob[RV_RESP_TERM][s] = n.term;
@@ -566,7 +753,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     bool proceed = false;
     int match = 0;
     if (mt >= n.term) {   // not stale
-      accept_leader(a, n, gid, i, s);
+      accept_leader(a, n, gid, i, s, t, nm);
       bool past = prev > n.last_index;
       bool conflict = !past && prev >= n.snap_index &&
                       term_at(n, prev, L) != prev_term;
@@ -599,7 +786,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
           bool same_p = in_log && !same_t && n.lp[sl] == ep;
           bool diverge = in_log && !same_t && !same_p;
           bool need_append = !in_log || diverge;
-          bool room = idx - n.snap_index <= L;
+          bool room = idx - n.snap_index <= L && !full;
           bool do_append = need_append && room;
           if (same_p || do_append) n.lt[sl] = et;
           if (do_append) n.lp[sl] = ep;
@@ -643,7 +830,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     if (mt > n.term) step_down(a, n, mt);
     int match = 0;
     if (mt >= n.term) {
-      accept_leader(a, n, gid, i, s);
+      accept_leader(a, n, gid, i, s, t, nm);
       if (si <= n.commit) {   // already covered
         match = n.commit;
       } else {
@@ -706,7 +893,8 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       if (!higher && n.role == PRECANDIDATE && req == n.term + 1 && granted) {
         n.votes |= 1u << s;
         // A pre-vote quorum starts the real election here, in phase D.
-        if (vote_quorum(a, n, n.votes)) start_election(a, n, gid, i, ob);
+        if (vote_quorum(a, n, n.votes))
+          start_election(a, n, gid, i, ob, t, nm);
       }
     }
   }
@@ -719,7 +907,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       // second start would write the RequestVote slots twice.
       bool go = mt == n.term && n.role != LEADER && n.role != CANDIDATE;
       if constexpr (RECONFIG) go = go && is_voter(current_voters(a, n), i);
-      if (go) start_election(a, n, gid, i, ob);
+      if (go) start_election(a, n, gid, i, ob, t, nm);
     }
   }
 #undef PRESENT
@@ -787,9 +975,9 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       n.role = PRECANDIDATE;
       n.leader_id = NO_VOTE;
       n.votes = 1u << i;
-      reset_timer(a, n, gid, i);
+      reset_timer(a, n, gid, i, t, nm);
       if (vote_quorum(a, n, n.votes)) {   // one vote is a quorum
-        start_election(a, n, gid, i, ob);
+        start_election(a, n, gid, i, ob, t, nm);
       } else {
         int llt = term_at(n, n.last_index, L);
         for (int p = 0; p < K; ++p) {
@@ -802,10 +990,11 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       }
     }
   } else if (timeout) {
-    start_election(a, n, gid, i, ob);
+    start_election(a, n, gid, i, ob, t, nm);
   }
 
   // ---- phase C: scheduled read, scheduled membership change, fire-hose
+  // (a disk-full leader appends nothing)
   const bool lead = n.role == LEADER;
   if constexpr (READS) {
     // ReadIndex at the start of phase C, at the pre-append commit index.
@@ -832,7 +1021,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       int idx = n.last_index + 1;
       if (__popc(static_cast<unsigned>(new_mask)) >= a.min_voters &&
           cfg_index <= n.commit && term_at(n, n.commit, L) == n.term &&
-          idx - n.snap_index <= L) {
+          idx - n.snap_index <= L && !full) {
         int sl = slot_of(idx, L);
         n.lt[sl] = n.term;
         n.lp[sl] = CONFIG_FLAG | new_mask;
@@ -848,7 +1037,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       for (int q = 0; q < S; ++q) {
         if (!cl.submit[q]) continue;
         int idx = n.last_index + 1;
-        if (idx - n.snap_index > L) {
+        if (idx - n.snap_index > L || full) {
           stopped = true;
           break;
         }
@@ -859,7 +1048,7 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
       }
     }
   }
-  if (n.role == LEADER && !stopped) {
+  if (n.role == LEADER && !stopped && !full) {
     for (int c = 0; c < a.cmds; ++c) {
       int idx = n.last_index + 1;
       if (idx - n.snap_index > L) break;   // window full
@@ -905,7 +1094,10 @@ __device__ void node_step(const Group& gr, int i, unsigned keep,
     if (fold) n.digest = digest_update(n.digest, idx, p);
     n.applied = idx;
   }
-  if (n.commit - n.snap_index >= a.compact) {
+  bool compact = n.commit - n.snap_index >= a.compact;
+  if constexpr (NEMESIS)
+    if (compact) compact = !nem_compact_block(a, nm, gid, i, tu);
+  if (compact) {
     if constexpr (CLIENTS)   // the live table folds into the snapshot's
       for (int q = 0; q < S; ++q) n.snap_sess[q] = n.sess[q];
     int snap_voters = a.full_mask;   // the committed config
@@ -1146,7 +1338,7 @@ __device__ void client_rows(const Group& gr, CL& cl, bool load) {
 // A template over the client state's type, so that a build without clients
 // never instantiates the code that names its members, and over the flight
 // ring (see the head of the file).
-template <class CL, bool FLIGHT>
+template <class CL, class NM, bool FLIGHT>
 __global__ void __launch_bounds__(128)
 fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
                    int* __restrict__ scratch, int* __restrict__ acc,
@@ -1173,6 +1365,8 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
   CL cl;
   int cmax = 0;   // longest ack latency this launch
   if constexpr (CLIENTS) client_rows(gr, cl, true);
+  NM nm;
+  if constexpr (NEMESIS) nem_participate(a, nm, gr.gid);
 
   for (int tt = 0; tt < a.n_ticks; ++tt) {
     const uint32_t tu = static_cast<uint32_t>(a.t0 + tt);
@@ -1187,9 +1381,15 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
         if (hash_u32(a.seed, TAG_CRASH, gr.gid, k, epoch) >= a.crash_u32)
           alive |= 1u << k;
     }
+    if constexpr (NEMESIS) alive &= ~nem_down(a, nm, gr.gid, tu);
     unsigned edge = alive & ~alive_prev;
-    for (int k = 0; k < K; ++k)
-      if ((edge >> k) & 1u) restart(gr, k);
+    for (int k = 0; k < K; ++k) {
+      if (!((edge >> k) & 1u)) continue;
+      restart(gr, k);
+      if constexpr (NEMESIS)   // the restart's deadline draw, skewed
+        gr.s(F_DEADLINE, k) =
+            nem_skewed(a, nm, gr.gid, k, tu, gr.s(F_DEADLINE, k));
+    }
 
     bool part_active = false;
     unsigned side = 0;
@@ -1213,6 +1413,11 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
                                                 gr.gid, q, cl.done[q]) &
                                        VAL_MASK);
     }
+    unsigned blk[KMAX];   // link clauses' drops, by dst (bit = src)
+    if constexpr (NEMESIS) {
+      nem_links(a, nm, gr.gid, tu, blk);
+      nm.full = nem_full(a, nm, gr.gid, tu);
+    }
     for (int i = 0; i < K; ++i) {
       bool alive_i = (alive >> i) & 1u;
       unsigned keep = 0;   // delivery filter for dst = i, by src
@@ -1224,8 +1429,9 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
                           a.drop_u32;
           if (!cut && !drop) keep |= 1u << s;
         }
+        if constexpr (NEMESIS) keep &= ~blk[i];
       }
-      node_step<Node, CL>(gr, i, keep, alive_i, a.t0 + tt, cl);
+      node_step<Node, CL, NM>(gr, i, keep, alive_i, a.t0 + tt, cl, nm);
     }
     alive_prev = alive;
     if constexpr (CLIENTS) client_update(gr, cl, a.t0 + tt, acc, cmax);
@@ -1298,14 +1504,16 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
 }  // namespace
 
 // Launch on `stream`. `offsets` (n_offsets == N_FIELDS ints, -1 for a
-// field the config does not carry) and `params` (n_params ==
-// N_PARAMS int64s) are host arrays. Returns the cudaGetLastError() of the
-// launch (0 = launched), -1 on a bad argument, -2 when the config's
-// feature flags are not this build's.
+// field the config does not carry), `params` (n_params == N_PARAMS
+// int64s) and `nem` (the seams' clause counts, then the clauses' 8 words
+// each, grouped by seam; n_nem words) are host arrays. Returns the
+// cudaGetLastError() of the launch (0 = launched), -1 on a bad argument,
+// -2 when the config's feature flags are not this build's.
 extern "C" int fused_chunk_launch(const void* wire_in, void* wire_out,
                                   void* scratch, void* acc,
                                   const int* offsets, int n_offsets,
                                   const long long* params, int n_params,
+                                  const unsigned* nem, int n_nem,
                                   void* stream) {
   if (n_offsets != N_FIELDS || n_params != N_PARAMS) return -1;
   Args a;
@@ -1349,9 +1557,21 @@ extern "C" int fused_chunk_launch(const void* wire_in, void* wire_out,
   // The config's feature flags must be this build's.
   if (params[P_PREVOTE] != PREVOTE || params[P_TRANSFER] != TRANSFER ||
       params[P_RECONFIG] != RECONFIG || params[P_READS] != READS ||
-      params[P_CLIENTS] != CLIENTS)
+      params[P_CLIENTS] != CLIENTS || params[P_NEMESIS] != NEMESIS)
     return -2;
   for (int f = 0; f < N_FIELDS; ++f) a.off[f] = offsets[f];
+  if (n_nem < N_SEAMS) return -1;
+  a.nem.start[0] = 0;
+  for (int s = 0; s < N_SEAMS; ++s) {
+    if (static_cast<int>(nem[s]) < 0) return -1;
+    a.nem.start[s + 1] = a.nem.start[s] + static_cast<int>(nem[s]);
+  }
+  const int n_clauses = a.nem.start[N_SEAMS];
+  if (n_clauses > (NEMESIS ? NEM_MAX : 0) ||
+      n_nem != N_SEAMS + 8 * n_clauses)
+    return -1;
+  for (int j = 0; j < n_clauses; ++j)
+    for (int w = 0; w < 8; ++w) a.nem.c[j][w] = nem[N_SEAMS + 8 * j + w];
   const int threads = 128;
   const int blocks = (a.G + threads - 1) / threads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1360,10 +1580,10 @@ extern "C" int fused_chunk_launch(const void* wire_in, void* wire_out,
   int* sc = static_cast<int*>(scratch);
   int* ac = static_cast<int*>(acc);
   if (a.ring > 0)
-    fused_chunk_kernel<Clients, true><<<blocks, threads, 0, st>>>(in, o, sc,
-                                                                  ac, a);
+    fused_chunk_kernel<Clients, Nem, true><<<blocks, threads, 0, st>>>(
+        in, o, sc, ac, a);
   else
-    fused_chunk_kernel<Clients, false><<<blocks, threads, 0, st>>>(in, o, sc,
-                                                                   ac, a);
+    fused_chunk_kernel<Clients, Nem, false><<<blocks, threads, 0, st>>>(
+        in, o, sc, ac, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,12 +28,14 @@ the plain version, `kstep_plain` (sim/run.py `run`, or
 obs/recorder.py `run_recorded` with a flight, over the same ticks,
 through the same wire boundary). There is no fallback from one to the
 other. The four protocol features (PreVote, leadership transfer,
-membership change, scheduled reads) and the scheduled clients are
-compile-time flags of the kernel: each flag set is its own build of the
-one source (`load`), the all-off build carrying none of their code. The
-flight ring is a launch parameter (its ring length, 0 = off). A build
-runs `nvcc` at first use, into a directory git ignores, and is bound
-through ctypes.
+membership change, scheduled reads), the scheduled clients and the
+nemesis program are compile-time flags of the kernel: each flag set is
+its own build of the one source (`load`), the all-off build carrying
+none of their code. The flight ring is a launch parameter (its ring
+length, 0 = off), and so are the nemesis program's clauses (at most
+`NEM_MAX`, grouped by seam on the host, `_nem_words`). A build runs
+`nvcc` at first use, into a directory git ignores, and is bound through
+ctypes.
 """
 
 from __future__ import annotations
@@ -67,8 +69,10 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The kernel's compile-time feature flags, in the order of its macros.
-FEATURES = ("prevote", "transfer", "reconfig", "reads", "clients")
+FEATURES = ("prevote", "transfer", "reconfig", "reads", "clients",
+            "nemesis")
 KMAX, LMAX = 8, 64   # the kernel's per-thread array bounds
+NEM_MAX = 16         # the kernel's clause table holds this many
 
 _PEER = ("votes", "next_index", "match_index", "ack_time")
 _RING = ("log_term", "log_payload")
@@ -108,7 +112,7 @@ def features(cfg: RaftConfig) -> tuple:
     """The kernel's feature flags for a universe, in `FEATURES` order."""
     return (bool(cfg.prevote), cfg.transfer_u32 != 0,
             cfg.reconfig_u32 != 0, cfg.read_every != 0,
-            cfg.clients_u32 != 0)
+            cfg.clients_u32 != 0, len(cfg.nemesis) > 0)
 
 
 def flag_name(flags: tuple) -> str:
@@ -415,6 +419,21 @@ def _params(cfg: RaftConfig, g: int, hist: int, ring: int, t0: int,
         dtype=np.int64)
 
 
+def _nem_words(cfg: RaftConfig) -> np.ndarray:
+    """The nemesis program as the kernel takes it (uint32): the clause
+    count of each seam (link, crash, skew, disk, compaction), then each
+    clause's eight words, grouped by seam. Times are clamped to 2**31 - 1
+    (no tick reaches it) and the signed skew amount is its bit pattern."""
+    seams = (cfg.nem_link, cfg.nem_crash, cfg.nem_skew, cfg.nem_disk,
+             cfg.nem_compact)
+    words = [len(sm) for sm in seams]
+    for sm in seams:
+        for kind, t0, t1, group_u32, p_u32, a, b, cid in sm:
+            words += [kind, min(t0, 2 ** 31 - 1), min(t1, 2 ** 31 - 1),
+                      group_u32, p_u32, a & 0xFFFFFFFF, b, cid & 0xFFFFFFFF]
+    return np.array(words, dtype=np.uint32)
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -478,6 +497,7 @@ def load(flags: tuple) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_so_path(flags)))
     fn = lib.fused_chunk_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -495,9 +515,11 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
         return kstep_plain(cfg, leaves, t0, n_ticks)
     if wire.device.type != "cuda":
         raise ValueError(f"no fused-chunk kernel for {wire.device}")
-    if cfg.k > KMAX or cfg.log_cap > LMAX:
-        raise ValueError(f"the kernel takes k <= {KMAX} and log_cap <= "
-                         f"{LMAX}, not k={cfg.k}, log_cap={cfg.log_cap}")
+    if cfg.k > KMAX or cfg.log_cap > LMAX or len(cfg.nemesis) > NEM_MAX:
+        raise ValueError(f"the kernel takes k <= {KMAX}, log_cap <= {LMAX} "
+                         f"and at most {NEM_MAX} nemesis clauses, not "
+                         f"k={cfg.k}, log_cap={cfg.log_cap}, "
+                         f"{len(cfg.nemesis)} clauses")
     if n_ticks < 0 or t0 < 0 or t0 + n_ticks >= 2 ** 31:
         raise ValueError("ticks must lie in [0, 2**31)")
     flags = features(cfg)
@@ -512,11 +534,12 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
     offs = np.array(offsets, dtype=np.int32)
     params = _params(cfg, g, _hist_size(cfg, acc), ring, int(t0),
                      int(n_ticks))
+    nem = _nem_words(cfg)
     stream = torch.cuda.current_stream(wire.device).cuda_stream
     rc = lib.fused_chunk_launch(
         wire.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         acc_out.data_ptr(), offs.ctypes.data, len(offs), params.ctypes.data,
-        len(params), stream)
+        len(params), nem.ctypes.data, len(nem), stream)
     if rc != 0:
         raise RuntimeError(f"fused_chunk launch failed: error {rc}")
     kstep.launches += 1

@@ -206,6 +206,11 @@ def init(cfg: RaftConfig, n_groups: int | None = None,
     i_idx = torch.arange(k, dtype=I32, device=device)[None, :]
     deadline = trng.election_deadline(cfg.seed, g_idx, i_idx, 0,
                                       cfg.election_min, cfg.election_range)
+    if cfg.nem_skew:
+        # The first draw is made at tick 0: a skew clause covering it
+        # skews the initial deadline.
+        deadline = torch.clamp(deadline + trng.nem_deadline_extra(
+            cfg.seed, cfg.nem_skew, g_idx, i_idx, 0), min=1)
     deadline = deadline.expand(g, k).contiguous()
 
     def z(dtype, *extra):

@@ -29,7 +29,10 @@ the JAX package gates it — PreVote (`prevote`), leadership transfer
 scheduled ReadIndex reads (`read_every`) and exactly-once client
 sessions (`cfg.clients_u32`: session appends in phase C, the dedup
 filter at apply time, the tables in InstallSnapshot and restart, the
-client transition after the tick).
+client transition after the tick) — and the nemesis program's seams,
+each gated on its filtered subprogram (`cfg.nem_*`): link clauses in the
+delivery filter, crash storms in the aliveness mask, skew in every
+deadline draw, disk-full nodes' appends, compaction blocks in phase A.
 """
 
 from __future__ import annotations
@@ -152,10 +155,34 @@ def _vote_quorum(cfg, ns: PerNode, votes):
 # -------------------------------------------------------------- transitions
 
 
-def _reset_timer(cfg, ns: PerNode, g, i, cond):
-    """One counted election-deadline draw."""
-    deadline = trng.election_deadline(cfg.seed, g, i, ns.rng_draws,
-                                      cfg.election_min, cfg.election_range)
+def _skewed(cfg, deadline, g, i, t):
+    """A deadline drawn at tick t, shifted by the active skew clauses and
+    clamped at 1 (unchanged without skew clauses)."""
+    if not cfg.nem_skew:
+        return deadline
+    return torch.clamp(deadline + trng.nem_deadline_extra(
+        cfg.seed, cfg.nem_skew, g, i, t), min=1)
+
+
+def _disk_full(cfg, g, i, t):
+    """[G, K]: the nodes whose appends fail at tick t (None without disk
+    clauses)."""
+    if not cfg.nem_disk:
+        return None
+    return trng.nem_disk_full(cfg.seed, cfg.nem_disk, g, i, t, cfg.k)
+
+
+def _room(cfg, ns: PerNode, idx, df):
+    """The window has room for index idx and the disk takes the append."""
+    room = (idx - ns.snap_index) <= cfg.log_cap
+    return room if df is None else room & ~df
+
+
+def _reset_timer(cfg, ns: PerNode, g, i, cond, t):
+    """One counted election-deadline draw, made at tick t."""
+    deadline = _skewed(cfg, trng.election_deadline(
+        cfg.seed, g, i, ns.rng_draws, cfg.election_min, cfg.election_range),
+        g, i, t)
     return ns._replace(
         election_elapsed=W(cond, 0, ns.election_elapsed),
         deadline=W(cond, deadline, ns.deadline),
@@ -203,14 +230,14 @@ def _become_leader(cfg, ns: PerNode, i, cond):
                                       top, ns.term))
 
 
-def _accept_leader(cfg, ns: PerNode, g, i, src: int, cond):
+def _accept_leader(cfg, ns: PerNode, g, i, src: int, cond, t):
     ns = ns._replace(
         role=W(cond, FOLLOWER, ns.role),
         leader_id=W(cond, src, ns.leader_id),
         votes=ns.votes & ~cond.unsqueeze(-1),
         leader_elapsed=W(cond, 0, ns.leader_elapsed),
     )
-    return _reset_timer(cfg, ns, g, i, cond)
+    return _reset_timer(cfg, ns, g, i, cond, t)
 
 
 # ----------------------------------------------------------------- phase D
@@ -228,7 +255,7 @@ def _on_rv_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
              & ((ns.voted_for == NO_VOTE) | (ns.voted_for == src))
              & log_ok)
     ns = ns._replace(voted_for=W(grant, src, ns.voted_for))
-    ns = _reset_timer(cfg, ns, g, i, grant)
+    ns = _reset_timer(cfg, ns, g, i, grant, gl[2])
     _put(out, "rv_resp_present", src, present, True)
     _put(out, "rv_resp_term", src, present, ns.term)
     _put(out, "rv_resp_granted", src, present, grant)
@@ -272,7 +299,7 @@ def _on_ae_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     ns = _step_down(cfg, ns, m_term, present & (m_term > ns.term))
     stale = present & (m_term < ns.term)
     ok = present & ~stale
-    ns = _accept_leader(cfg, ns, g, i, src, ok)
+    ns = _accept_leader(cfg, ns, g, i, src, ok, gl[2])
 
     past = ok & (m_prev > ns.last_index)
     conflict = (ok & ~past & (m_prev >= ns.snap_index)
@@ -287,6 +314,10 @@ def _on_ae_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     ci = torch.minimum(W(bad, absidx, snap1).amax(-1) + 1, m_prev)
 
     proceed = ok & ~past & ~conflict
+    # A disk-full node's appends fail, so `hi` (the match reply and the
+    # commit clamp) stops at the durable prefix; matching entries, term
+    # rewrites in place and the truncation of a divergent suffix go on.
+    df = _disk_full(cfg, g, i, gl[2])
     # Entry walk, decide then write: the E entries address E consecutive
     # indices, pairwise distinct ring slots, so within one message no
     # write feeds a later read.
@@ -305,7 +336,7 @@ def _on_ae_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
         same_p = in_log & ~same_t & (_lget(ns.log_payload, s) == ent_p[j])
         diverge = in_log & ~same_t & ~same_p   # truncate, then append
         need_append = (act & ~in_log) | diverge
-        room = (idx - ns.snap_index) <= cfg.log_cap
+        room = _room(cfg, ns, idx, df)
         do_append = need_append & room
         write_t.append(same_p | do_append)
         write_p.append(do_append)
@@ -377,7 +408,7 @@ def _on_is_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     ns = _step_down(cfg, ns, m_term, present & (m_term > ns.term))
     stale = present & (m_term < ns.term)
     ok = present & ~stale
-    ns = _accept_leader(cfg, ns, g, i, src, ok)
+    ns = _accept_leader(cfg, ns, g, i, src, ok, gl[2])
     have = ok & (m_si <= ns.commit)   # already covered
     inst = ok & ~have
     # Keep the suffix when it matches: in the ring model last_index is
@@ -423,7 +454,7 @@ def _on_is_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
                              W(cont, new_match + 1, ns.next_index[..., src])))
 
 
-def _start_election_masked(cfg, ns, out, g, i, cond):
+def _start_election_masked(cfg, ns, out, g, i, cond, t):
     """Term bump, candidacy, fresh timer draw, instant single-voter win,
     RequestVote broadcast. Shared by phase T, the pre-vote quorum and
     TimeoutNow (both in phase D)."""
@@ -435,7 +466,7 @@ def _start_election_masked(cfg, ns, out, g, i, cond):
         votes=W(cond.unsqueeze(-1), _lanes(cfg, cond) == i.unsqueeze(-1),
                 ns.votes),
     )
-    ns = _reset_timer(cfg, ns, g, i, cond)
+    ns = _reset_timer(cfg, ns, g, i, cond, t)
     won = cond & _vote_quorum(cfg, ns, ns.votes)
     ns = _become_leader(cfg, ns, i, won)
     llt = _last_log_term(cfg, ns)
@@ -482,7 +513,7 @@ def _on_pv_resp(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
     votes[..., src] |= cont
     ns = ns._replace(votes=votes)
     won_pre = cont & _vote_quorum(cfg, ns, votes)
-    return _start_election_masked(cfg, ns, out, g, i, won_pre)
+    return _start_election_masked(cfg, ns, out, g, i, won_pre, gl[2])
 
 
 def _on_tn_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
@@ -497,7 +528,7 @@ def _on_tn_req(cfg, ns, out, g, i, src: int, ib: Mailbox, gl):
             & (ns.role != LEADER) & (ns.role != CANDIDATE))
     if cfg.reconfig_u32:
         cond = cond & _is_voter(_config_scan(cfg, ns)[0], i)
-    return _start_election_masked(cfg, ns, out, g, i, cond)
+    return _start_election_masked(cfg, ns, out, g, i, cond, gl[2])
 
 
 def _handlers(cfg):
@@ -575,7 +606,7 @@ def _phase_t(cfg, ns, out, g, i, t: int):
         election_elapsed=W(is_leader, ns.election_elapsed, ee),
         leader_elapsed=W(is_leader, 0, ns.leader_elapsed + 1))
     if not cfg.prevote:
-        return _start_election_masked(cfg, ns, out, g, i, timeout)
+        return _start_election_masked(cfg, ns, out, g, i, timeout, t)
     # Pre-candidacy, no term bump; a config where one vote is a quorum
     # skips straight to the real election (with its second deadline
     # draw).
@@ -585,9 +616,9 @@ def _phase_t(cfg, ns, out, g, i, t: int):
         votes=W(timeout.unsqueeze(-1), _lanes(cfg, i) == i.unsqueeze(-1),
                 ns.votes),
     )
-    ns = _reset_timer(cfg, ns, g, i, timeout)
+    ns = _reset_timer(cfg, ns, g, i, timeout, t)
     skip = timeout & _vote_quorum(cfg, ns, ns.votes)
-    ns = _start_election_masked(cfg, ns, out, g, i, skip)
+    ns = _start_election_masked(cfg, ns, out, g, i, skip, t)
     llt = _last_log_term(cfg, ns)
     for p in range(cfg.k):
         send = timeout & ~skip & (i != p)
@@ -601,13 +632,15 @@ def _phase_t(cfg, ns, out, g, i, t: int):
 # ----------------------------------------------------------------- phase C
 
 
-def _phase_c(cfg, ns, g, t: int, csub=None, cpay=None):
+def _phase_c(cfg, ns, g, i, t: int, csub=None, cpay=None):
     """Scheduled read registration, the scheduled membership proposal,
     the pulsed client session ops (`csub`/`cpay`, `[G, S]`, raised by the
     previous tick's client transition; None with clients off), then
     fire-hose command appends, by every node that believes itself
-    leader, stopping at a full window."""
+    leader, stopping at a full window. A disk-full leader appends
+    nothing."""
     lead = ns.role == LEADER
+    df = _disk_full(cfg, g, i, t)
     if cfg.read_every and t % cfg.read_every == 0:
         # ReadIndex at the start of phase C: the read point is the
         # pre-append commit index, registered once the leader has
@@ -632,7 +665,7 @@ def _phase_c(cfg, ns, g, t: int, csub=None, cpay=None):
                 & (cfg_index <= ns.commit)
                 & (_term_at(cfg, ns, ns.commit) == ns.term))
         idx = ns.last_index + 1
-        room = (idx - ns.snap_index) <= cfg.log_cap
+        room = _room(cfg, ns, idx, df)
         do = lead & fires & gate & room
         s = _slot(cfg, idx)
         ns = ns._replace(
@@ -647,7 +680,7 @@ def _phase_c(cfg, ns, g, t: int, csub=None, cpay=None):
         # transient leaders are safe by the exactly-once fold.
         for sl in range(cfg.client_slots):
             idx = last_index + 1
-            room = (idx - ns.snap_index) <= cfg.log_cap
+            room = _room(cfg, ns, idx, df)
             want = lead & (csub[:, sl:sl + 1] != 0)
             do = want & room & ~stopped
             s = _slot(cfg, idx)
@@ -658,7 +691,7 @@ def _phase_c(cfg, ns, g, t: int, csub=None, cpay=None):
             stopped = stopped | (want & ~room)
     for _ in range(cfg.cmds_per_tick):
         idx = last_index + 1
-        room = (idx - ns.snap_index) <= cfg.log_cap
+        room = _room(cfg, ns, idx, df)
         do = lead & room & ~stopped
         payload = trng.client_payload(cfg.seed, g, ns.term, idx)
         s = _slot(cfg, idx)
@@ -673,9 +706,10 @@ def _phase_c(cfg, ns, g, t: int, csub=None, cpay=None):
 # ----------------------------------------------------------------- phase A
 
 
-def _phase_a(cfg, ns, i):
+def _phase_a(cfg, ns, g, i, t: int):
     """Voters-aware commit advance, removed-leader step-down, apply (the
-    digest chain), compaction, scheduled-read completion."""
+    digest chain), compaction (unless a compaction clause blocks it),
+    scheduled-read completion."""
     if cfg.reconfig_u32 == 0:
         n = quorum.commit_candidate(ns.match_index, ns.last_index, i,
                                     cfg.k, cfg.majority)
@@ -725,6 +759,9 @@ def _phase_a(cfg, ns, i):
         applied = W(act, idx, applied)
 
     compact = (commit - ns.snap_index) >= cfg.compact_every
+    if cfg.nem_compact:
+        compact = compact & ~trng.nem_compact_block(
+            cfg.seed, cfg.nem_compact, g, i, t)
     if cfg.clients_u32:
         # Compaction folds the live table into the snapshot's.
         ns = ns._replace(session_seq=table, snap_session_seq=W(
@@ -777,19 +814,19 @@ def _node_tick(cfg, nodes: PerNode, inbox: Mailbox, g, i, t: int,
         for src in range(cfg.k):
             ns = handler(cfg, ns, out, g, i, src, inbox, gl)
     ns = _phase_t(cfg, ns, out, g, i, t)
-    ns = _phase_c(cfg, ns, g, t, csub, cpay)
-    ns = _phase_a(cfg, ns, i)
+    ns = _phase_c(cfg, ns, g, i, t, csub, cpay)
+    ns = _phase_a(cfg, ns, g, i, t)
     return ns, Mailbox(**out)
 
 
 # ------------------------------------------------------------- global tick
 
 
-def _apply_restart(cfg, nodes: PerNode, g_grid, i_grid, edge):
+def _apply_restart(cfg, nodes: PerNode, g_grid, i_grid, edge, t: int):
     """Restart: durable state survives, volatile state rewinds."""
-    new_deadline = trng.election_deadline(cfg.seed, g_grid, i_grid,
-                                          nodes.rng_draws, cfg.election_min,
-                                          cfg.election_range)
+    new_deadline = _skewed(cfg, trng.election_deadline(
+        cfg.seed, g_grid, i_grid, nodes.rng_draws, cfg.election_min,
+        cfg.election_range), g_grid, i_grid, t)
     e1 = edge.unsqueeze(-1)
     return nodes._replace(
         role=W(edge, FOLLOWER, nodes.role),
@@ -827,6 +864,9 @@ def _filter_mailbox(cfg, mb: Mailbox, t, alive_now, group_id) -> Mailbox:
                                  cfg.partition_u32, cfg.partition_epoch)
     drop = trng.link_dropped(cfg.seed, gg, t, src, dst, cfg.drop_u32)
     keep = alive_now[:, :, None] & ~part & ~drop
+    if cfg.nem_link:
+        keep = keep & trng.nem_link_ok(cfg.seed, cfg.nem_link, gg, t, src,
+                                       dst, cfg.k)
     return mb._replace(**{f: getattr(mb, f) & keep
                           for f in present_fields(cfg)})
 
@@ -840,8 +880,12 @@ def tick(cfg: RaftConfig, st: State, t: int) -> State:
     i_grid = torch.arange(k, dtype=I32, device=dev)[None, :].expand(g, k)
     alive_now = trng.node_alive(cfg.seed, g_grid, i_grid, t, cfg.crash_u32,
                                 cfg.crash_epoch).expand(g, k)
+    if cfg.nem_crash:
+        # Crash storms AND into the base schedule, before the restart edge.
+        alive_now = alive_now & trng.nem_alive(cfg.seed, cfg.nem_crash,
+                                               g_grid, i_grid, t)
     nodes = _apply_restart(cfg, st.nodes, g_grid, i_grid,
-                           alive_now & ~st.alive_prev)
+                           alive_now & ~st.alive_prev, t)
     inbox = _filter_mailbox(cfg, st.mailbox, t, alive_now, st.group_id)
     csub = cpay = None
     if cfg.clients_u32:

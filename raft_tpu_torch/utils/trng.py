@@ -147,3 +147,159 @@ def client_val(seed, g, sid, seq):
 def digest_update(digest, index, payload):
     return mix32(_mulc(_u32(digest), _r.GOLD)
                  + mix32(_mulc(_u32(index), _r.GOLD) + _u32(payload)))
+
+
+# ------------------------------------------------ nemesis seam evaluators
+# Each takes the seam's filtered subprogram (cfg.nem_link, nem_crash,
+# nem_skew, nem_disk, nem_compact) and raises on a program with no clause
+# of its seam, so a caller that forgot to gate the call fails loudly. `t`
+# may be a Python int (the tick: a clause outside its span is skipped) or
+# a tensor of ticks.
+
+
+def _bool(x):
+    return x if isinstance(x, torch.Tensor) else torch.tensor(bool(x))
+
+
+def _nem_active(seed, c, g, t):
+    """One clause's span and per-group participation gate, or None when a
+    Python-int tick lies outside the span."""
+    _, t0, t1, group_u32, _, _, _, cid = c
+    if isinstance(t, torch.Tensor):
+        span = (t >= t0) & (t < t1)
+    elif not t0 <= t < t1:
+        return None
+    else:
+        span = True
+    part = _bool(hash_u32(seed, _r.TAG_NEM_GROUP, cid, g) < group_u32)
+    return part & span
+
+
+def _any(acc, x):
+    return x if acc is None else acc | x
+
+
+def nem_link_ok(seed, prog, g, t, src, dst, k: int):
+    """True where no active link clause blocks delivery on src -> dst."""
+    relevant, blocked = False, None
+    for c in prog:
+        kind, _, _, _, p_u32, a, b, cid = c
+        if kind not in _r.NEM_LINK_KINDS:
+            continue
+        relevant = True
+        act = _nem_active(seed, c, g, t)
+        if act is None:
+            continue
+        if kind == _r.NEM_SLOW:
+            target = hash_u32(seed, _r.TAG_NEM_NODE, cid, g) % k
+            hit = None
+            if a & 1:
+                hit = _u32(src) == target
+            if a & 2:
+                hit = _any(hit, _u32(dst) == target)
+        elif kind == _r.NEM_FLAKY:
+            if k < 2:
+                continue   # a 1-node group has no links
+            s = hash_u32(seed, _r.TAG_NEM_NODE, cid, g, 0) % k
+            d = (s + 1 + hash_u32(seed, _r.TAG_NEM_NODE, cid, g, 1)
+                 % (k - 1)) % k
+            burst = hash_u32(seed, _r.TAG_NEM_BURST, cid, g,
+                             _u32(t) // a) < b
+            hit = _bool(_u32(src) == s) & (_u32(dst) == d) & burst
+        elif kind == _r.NEM_WAN:
+            hit = (hash_u32(seed, _r.TAG_NEM_NODE, cid, g, src) % a
+                   != hash_u32(seed, _r.TAG_NEM_NODE, cid, g, dst) % a)
+        else:   # NEM_WAVE
+            wave = ((_u32(t) + _u32(g)) & MASK) % a < b
+            ep = _u32(t) // a
+            hit = _bool(wave) & (
+                (hash_u32(seed, _r.TAG_NEM_SIDE, cid, g, ep, src) & 1)
+                != (hash_u32(seed, _r.TAG_NEM_SIDE, cid, g, ep, dst) & 1))
+        drop = act & hit & (hash_u32(seed, _r.TAG_NEM_LINK, cid, g, t, src,
+                                     dst) < p_u32)
+        blocked = _any(blocked, drop)
+    if not relevant:
+        raise ValueError("nem_link_ok: no link clause in the program — "
+                         "gate the call on cfg.nem_link")
+    if blocked is None:
+        return _ones_bool(g, t, src, dst)
+    return ~blocked
+
+
+def nem_alive(seed, prog, g, i, t):
+    """True where no active crash-storm clause holds node i down."""
+    relevant, dead = False, None
+    for c in prog:
+        kind, _, _, _, p_u32, a, _, cid = c
+        if kind not in _r.NEM_CRASH_KINDS:
+            continue
+        relevant = True
+        act = _nem_active(seed, c, g, t)
+        if act is not None:
+            dead = _any(dead, act & (hash_u32(seed, _r.TAG_NEM_CRASH, cid, g,
+                                              i, _u32(t) // a) < p_u32))
+    if not relevant:
+        raise ValueError("nem_alive: no crash clause in the program — "
+                         "gate the call on cfg.nem_crash")
+    return _ones_bool(g, i, t) if dead is None else ~dead
+
+
+def nem_deadline_extra(seed, prog, g, i, t):
+    """The signed skew (int32) added to node i's deadline draws at tick t;
+    callers clamp the skewed deadline at 1."""
+    relevant, extra = False, None
+    for c in prog:
+        kind, _, _, _, p_u32, a, _, cid = c
+        if kind not in _r.NEM_TIMING_KINDS:
+            continue
+        relevant = True
+        act = _nem_active(seed, c, g, t)
+        if act is not None:
+            on = act & (hash_u32(seed, _r.TAG_NEM_NODE, cid, g, i) < p_u32)
+            term = on.to(torch.int32) * a
+            extra = term if extra is None else extra + term
+    if not relevant:
+        raise ValueError("nem_deadline_extra: no timing clause in the "
+                         "program — gate the call on cfg.nem_skew")
+    return _zeros_bool(g, i, t).to(torch.int32) if extra is None else extra
+
+
+def nem_disk_full(seed, prog, g, i, t, k: int):
+    """True where an active disk-full clause fails node i's appends: the
+    hash-chosen target node, during sub-epochs that fire."""
+    relevant, full = False, None
+    for c in prog:
+        kind, _, _, _, p_u32, a, _, cid = c
+        if kind not in _r.NEM_DISK_KINDS:
+            continue
+        relevant = True
+        act = _nem_active(seed, c, g, t)
+        if act is not None:
+            target = hash_u32(seed, _r.TAG_NEM_NODE, cid, g) % k
+            full = _any(full, act & (_u32(i) == target) & (
+                hash_u32(seed, _r.TAG_NEM_DISK, cid, g, _u32(t) // a)
+                < p_u32))
+    if not relevant:
+        raise ValueError("nem_disk_full: no disk clause in the program — "
+                         "gate the call on cfg.nem_disk")
+    return _zeros_bool(g, i, t) if full is None else full
+
+
+def nem_compact_block(seed, prog, g, i, t):
+    """True where an active compaction-pressure clause blocks node i's
+    compaction step."""
+    relevant, blocked = False, None
+    for c in prog:
+        kind, _, _, _, p_u32, a, _, cid = c
+        if kind not in _r.NEM_COMPACT_KINDS:
+            continue
+        relevant = True
+        act = _nem_active(seed, c, g, t)
+        if act is not None:
+            blocked = _any(blocked, act & (
+                hash_u32(seed, _r.TAG_NEM_COMPACT, cid, g, i, _u32(t) // a)
+                < p_u32))
+    if not relevant:
+        raise ValueError("nem_compact_block: no compaction clause in the "
+                         "program — gate the call on cfg.nem_compact")
+    return _zeros_bool(g, i, t) if blocked is None else blocked

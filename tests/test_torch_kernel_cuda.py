@@ -5,10 +5,12 @@ build every distinct outbox layout (no PreVote/TimeoutNow slots,
 PreVote's alone, TimeoutNow's alone, both) and each voters-aware quorum
 path (PreVote, membership change, reads, alone and together), on
 scheduled-client universes (retrying sessions, the admission cap, with
-PreVote and membership change), on the flight ring, and on states with
-planted safety violations (where the kernel's own safety fold must clear
-exactly the planted groups). Needs an NVIDIA GPU and nvcc; skips without
-CUDA.
+PreVote and membership change), on the flight ring, on nemesis programs
+(the gray mix, the storage-pressure mix under admission-capped clients,
+one clause of every kind at k=3 and k=5, a program at the kernel's clause
+bound), and on states with planted safety violations (where the kernel's
+own safety fold must clear exactly the planted groups). Needs an NVIDIA
+GPU and nvcc; skips without CUDA.
 Imports no JAX, so it runs on a card machine without it (skipping the
 suite's JAX conftest):
 
@@ -22,6 +24,7 @@ import itertools
 import pytest
 import torch
 
+from raft_tpu_torch import nemesis
 from raft_tpu_torch.config import CONFIG_FLAG, RaftConfig
 from raft_tpu_torch.obs import recorder
 from raft_tpu_torch.sim import kernel, run, state
@@ -48,6 +51,33 @@ BENCH_CLIENTS = dict(seed=47, sessions=True, cmds_per_tick=0,
                      client_rate=0.2, client_slots=4, client_retry_backoff=8,
                      crash_prob=0.3, crash_epoch=64, partition_prob=0.2,
                      partition_epoch=64, drop_prob=0.02)
+
+
+# tests/test_nemesis.py's base universe
+NEM_BASE = dict(seed=9, k=3, log_cap=8, compact_every=4, drop_prob=0.03,
+                crash_prob=0.1, crash_epoch=24)
+
+
+def all_kinds(ticks: int) -> tuple:
+    """One clause of every kind, overlapping spans (tests/test_nemesis.py)."""
+    n = nemesis
+    return n.program(
+        n.slow_follower(0, ticks, p=0.7, direction=3),
+        n.flaky_link(0, ticks, p=0.9, burst_epoch=8, burst_p=0.6),
+        n.wan_delay(0, ticks * 2 // 3, sites=2, p=0.4),
+        n.clock_skew(4, ticks - 8, amount=5, node_p=0.6),
+        n.crash_storm(8, ticks * 2 // 3, p=0.3, epoch=4),
+        n.partition_wave(10, ticks - 4, period=16, width=6, leak_p=0.8),
+        n.disk_full_follower(2, ticks - 2, p=0.8, epoch=8),
+        n.compaction_pressure(6, ticks * 3 // 4, p=0.5, epoch=4))
+
+
+def bounded(n_clauses: int) -> tuple:
+    """A program of n_clauses clauses, the all-kinds ones repeated with
+    shifted spans (fresh cids)."""
+    clauses = [c._replace(t0=c.t0 + r, t1=c.t1 + r, cid=-1)
+               for r in range(0, 64, 8) for c in all_kinds(90)]
+    return nemesis.program(*clauses[:n_clauses])
 
 
 @pytest.fixture
@@ -179,11 +209,52 @@ def test_kernel_safety_fold_on_planted_violations(cuda, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(n_groups=1000, **CONFIG4, nemesis=nemesis.gray_mix(73)),
+    dict(n_groups=1000, seed=49, sessions=True, cmds_per_tick=0,
+         client_rate=0.5, client_slots=4, client_retry_backoff=8,
+         client_queue_cap=8, nemesis=nemesis.pressure_mix(73)),
+    dict(n_groups=300, **NEM_BASE, nemesis=all_kinds(73)),
+    dict(n_groups=300, seed=9, nemesis=all_kinds(73)),
+    dict(n_groups=300, **NEM_BASE, nemesis=bounded(kernel.NEM_MAX)),
+], ids=["gray_mix", "pressure", "all_kinds_k3", "all_kinds_k5",
+        "clause_bound"])
+def test_kernel_nemesis_matches_plain_on_card(cuda, kw):
+    """State, Metrics and Flight at every chunk boundary."""
+    cfg = RaftConfig(**kw)
+    g = cfg.n_groups
+    leaves, _ = kernel.kinit(cfg, state.init(cfg, device=cuda),
+                             flight=recorder.flight_init(g, device=cuda))
+    plain = leaves
+    for at, n in ((0, 33), (33, 40)):
+        leaves = kernel.kstep(cfg, leaves, at, n)
+        plain = kernel.kstep_plain(cfg, plain, at, n)
+        torch.cuda.synchronize()
+        assert_same(cfg, g, leaves, plain)
+        fk, fp = kernel.kflight(cfg, leaves, g), kernel.kflight(cfg, plain, g)
+        for name, x, y in zip(fk._fields, fk, fp):
+            assert torch.equal(x, y), name
+    _, m = kernel.kfinish(cfg, leaves, g)
+    assert run.unsafe_groups(m) == 0
+    if cfg.client_queue_cap:
+        clients = kernel.kfinish(cfg, leaves, g)[0].clients
+        assert int(clients.shed.sum()) > 0, "no arrival shed"
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_program_past_its_clause_bound(cuda):
+    cfg = RaftConfig(**NEM_BASE, nemesis=bounded(kernel.NEM_MAX + 1))
+    leaves, _ = kernel.kinit(cfg, state.init(cfg, 8, device=cuda))
+    with pytest.raises(ValueError, match="nemesis clauses"):
+        kernel.kstep(cfg, leaves, 0, 4)
+
+
+@pytest.mark.cuda
 def test_every_flag_set_builds(cuda):
-    """All 32 feature flag sets compile (nvcc, sm_90a), not only the ones
+    """All 64 feature flag sets compile (nvcc, sm_90a), not only the ones
     the universes above launch."""
     sets = list(itertools.product((False, True), repeat=len(kernel.FEATURES)))
     reports = kernel.build(sets)
-    assert len(reports) == 32
+    assert len(reports) == 64
     for flags in sets:
         assert "registers" in reports[flags], kernel.flag_name(flags)

@@ -31,7 +31,14 @@ def test_constants_match_reference():
     for name in ("GOLD", "TAG_TIMEOUT", "TAG_DROP", "TAG_CRASH", "TAG_PART",
                  "TAG_PART_SIDE", "TAG_CMD", "TAG_RECONFIG",
                  "TAG_RECONFIG_NODE", "TAG_TRANSFER", "TAG_TRANSFER_NODE",
-                 "TAG_CLIENT_ARRIVAL", "TAG_CLIENT_VAL"):
+                 "TAG_CLIENT_ARRIVAL", "TAG_CLIENT_VAL", "TAG_NEM_GROUP",
+                 "TAG_NEM_NODE", "TAG_NEM_LINK", "TAG_NEM_CRASH",
+                 "TAG_NEM_SIDE", "TAG_NEM_BURST", "TAG_NEM_DISK",
+                 "TAG_NEM_COMPACT", "NEM_SLOW", "NEM_FLAKY", "NEM_WAN",
+                 "NEM_SKEW", "NEM_STORM", "NEM_WAVE", "NEM_DISK",
+                 "NEM_COMPACT", "NEM_KINDS", "NEM_LINK_KINDS",
+                 "NEM_CRASH_KINDS", "NEM_TIMING_KINDS", "NEM_DISK_KINDS",
+                 "NEM_COMPACT_KINDS"):
         assert getattr(trng_consts, name) == getattr(prng, name), name
     assert trng_consts.SEED0 == prng._SEED0
 

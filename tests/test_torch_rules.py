@@ -66,6 +66,13 @@ def test_kernel_source_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     text = kernel.SOURCE.read_text()
     assert "pkernel.py:1950" in text and "fused_chunk_launch" in text
+    assert kernel.FEATURES == ("prevote", "transfer", "reconfig", "reads",
+                               "clients", "nemesis")
+    for f in kernel.FEATURES:
+        assert f"#ifndef FC_{f.upper()}" in text, f
+    assert kernel.flag_name((False,) * 5 + (True,)) == "nemesis"
+    assert kernel.flag_name((False,) * 4 + (True, True)) == \
+        "clients+nemesis"
 
 
 def test_wire_fields_follow_the_kernel_enum():
@@ -97,3 +104,24 @@ def test_kstep_counts_no_launch_on_cpu():
     before = kernel.kstep.launches
     kernel.kstep(cfg, leaves, 0, 2)
     assert kernel.kstep.launches == before
+
+
+def test_nemesis_table_follows_the_kernel():
+    """`_nem_words` groups the clauses in the kernel's `NemSeam` order,
+    behind the per-seam counts, and both sides bound the program alike."""
+    from raft_tpu_torch import nemesis as n
+    from raft_tpu_torch.config import RaftConfig
+    text = kernel.SOURCE.read_text()
+    assert "enum NemSeam { NS_LINK, NS_CRASH, NS_SKEW, NS_DISK, " \
+           "NS_COMPACT, N_SEAMS };" in text
+    assert f"constexpr int NEM_MAX = {kernel.NEM_MAX};" in text
+    prog = n.program(n.compaction_pressure(0, 9), n.clock_skew(0, 9, -3),
+                     n.wan_delay(0, 2 ** 40), n.crash_storm(0, 9),
+                     n.disk_full_follower(0, 9), n.slow_follower(0, 9))
+    words = kernel._nem_words(RaftConfig(nemesis=prog)).tolist()
+    assert words[:5] == [2, 1, 1, 1, 1]
+    kinds = [words[5 + 8 * j] for j in range(6)]
+    # WAN, SLOW (link), STORM, SKEW, DISK, COMPACT
+    assert kinds == [3, 1, 5, 4, 7, 8]
+    assert words[5 + 2] == 2 ** 31 - 1   # the WAN clause's t1, clamped
+    assert words[5 + 8 * 3 + 5] == 2 ** 32 - 3   # the skew's -3, as u32

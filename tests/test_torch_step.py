@@ -4,7 +4,8 @@ tick, tolerance 0, on five universes — the kernel fault mix, the
 headline width, the config-4 fault knobs at headline width, the
 election-rounds knobs (no commands: leaders only heartbeat), and the
 multi-source AppendEntries universe. Also: every feature the port does
-not carry yet is refused when the config is built, and the config
+not carry yet (the layout dials, cohort streaming) is refused when the
+config is built while a nemesis program is accepted, and the config
 validation (the client-traffic rules included) is the reference's."""
 
 from __future__ import annotations
@@ -63,7 +64,6 @@ def test_tick_matches_jax_every_tick(name):
 
 
 UNPORTED = [
-    dict(nemesis=((1, 0, 10, 1, 1, 1, 0, 0),)),
     dict(narrow_scalars=True), dict(narrow_ring=True),
     dict(narrow_mailbox=True), dict(narrow_clients=True),
     dict(donate_scan=True), dict(pack_bools=True), dict(pack_ring=True),
@@ -75,6 +75,13 @@ UNPORTED = [
 def test_unported_feature_refused_at_construction(kw):
     with pytest.raises(NotImplementedError, match="does not port"):
         RaftConfig(**kw)
+
+
+def test_nemesis_program_accepted_layout_dial_still_refused():
+    prog = ((1, 0, 10, 1, 1, 1, 0, 0),)
+    assert RaftConfig(nemesis=prog).nemesis == JaxConfig(nemesis=prog).nemesis
+    with pytest.raises(NotImplementedError, match="does not port"):
+        RaftConfig(nemesis=prog, pack_ring=True)
 
 
 CLIENTS = dict(sessions=True, cmds_per_tick=0, client_rate=0.1)
