@@ -11,8 +11,9 @@ raises on failure:
 1. the card's name and power limit (nvidia-smi);
 2. build the kernel from the checkout's sources for the 32 feature flag
    sets without nemesis and the two nemesis sets the runs launch (the
-   card test builds all 64), one nvcc per set, all started together;
-   print each build's registers, frame and spills (ptxas -v);
+   card test builds all 64), and the codec kernels, one nvcc per build,
+   all started together; print each build's registers, frame and spills
+   (ptxas -v);
 3. the safety fold: a headline state at 4,096 groups, a feature-mix
    state, a client-traffic state and a storage-pressure state at 1,000
    groups, each with one group planted per safety predicate (and per
@@ -53,8 +54,33 @@ raises on failure:
    pressure rung against bench.py's SLO and the knee; for the all-kinds
    run, the kernel again with each clause dropped in turn, which must
    change the final state;
-7. a `kernels` JSON line: launches, times and bound, and the same for
-   each flag set's build by run.
+then the slice of the layout and residency dials, each path with its
+launch counts set to 0 just before it and read just after:
+(a) packed wire: the headline, config-4, clients and nemesis runs again
+   with bench.py --pack-wire's dials (pack_bools, pack_ring, alias_wire),
+   3 x 200-tick launches each through the codec kernels
+   (raft_tpu_torch/csrc/wire_codec.cu); State, Metrics and Flight equal
+   phase 5's at every chunk boundary, the codec kernels' words equal the
+   plain `pack`/`unpack` of the same state, and the codec kernels are
+   timed against their plain versions at the headline's 100,000 groups;
+(b) wire_hist=False on the headline and clients: State, lanes and Flight
+   equal phase 5's and the caller's histograms pass through;
+(c) the four narrow dials and donate_scan on config-4 and clients:
+   values equal phase 5's, dtypes follow the narrow spec, no latch;
+(d) refusals: kfinish raises on a planted in-group term spread of 2^16
+   under pack_ring and on a planted narrow overflow;
+(e) memory: the peak of one headline kstep at 100,000 groups
+   (torch.cuda.max_memory_allocated) under four dial sets beside the
+   byte model's `hbm_bytes`, and the model's resident and streamed
+   ceilings for this card and host;
+(f) streamed: the headline at 1,000,000 groups for 200 ticks, packed,
+   through parallel/cohort.py in ten windows of 100,352 groups
+   (cohort_blocks=98), equal to the resident kernel run of the same
+   million groups; rounds/s and the pipeline's h2d/compute/d2h/wall
+   split and overlap efficiency;
+7. a `kernels` JSON line: launches, times and bound of the fused chunk
+   and the two codec kernels, and the same for each flag set's build by
+   run.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -85,6 +111,11 @@ FOLD_OPS = MIX_OPS + 2   # one hash_u32 argument: multiply, add, mix32
 # (bench.py:1200-1208)
 PRESSURE_RATES = (0.05, 0.1, 0.2, 0.35, 0.5)
 PRESSURE_ACK_SLO_TICKS, PRESSURE_SHED_SLO = 48, 0.05
+# bench.py --pack-wire's dials for every segment (bench.py:1391-1421)
+PACK_WIRE = dict(pack_bools=True, pack_ring=True, alias_wire=True)
+NARROW = dict(narrow_scalars=True, narrow_ring=True, narrow_mailbox=True,
+              narrow_clients=True, donate_scan=True)
+STREAM_GROUPS, STREAM_BLOCKS = 1_000_000, 98
 
 
 def config4(n_groups):
@@ -418,7 +449,8 @@ def finished(kernel, cfg, leaves, g):
 def chunked(step, cfg, leaves, n_chunks=None):
     """Run `step` over the first `n_chunks` (default: all) CHUNK-tick
     chunks of N_TICKS: (the leaves after each chunk, each chunk's ms by
-    CUDA events)."""
+    CUDA events). An aliased launch writes over its input, so under
+    alias_wire each chunk's leaves are kept as copies."""
     outs, ms = [], []
     for at in range(0, N_TICKS, CHUNK)[:n_chunks]:
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
@@ -426,9 +458,56 @@ def chunked(step, cfg, leaves, n_chunks=None):
         leaves = step(cfg, leaves, at, CHUNK)
         e1.record()
         torch.cuda.synchronize()
-        outs.append(leaves)
+        outs.append(tuple(x.clone() for x in leaves) if cfg.alias_wire
+                    else leaves)
         ms.append(e0.elapsed_time(e1))
     return outs, ms
+
+
+def reset_counts(kernel):
+    for fn in (kernel.kstep, kernel.pack_wire, kernel.unpack_wire):
+        fn.launches = 0
+
+
+def counts(kernel) -> dict:
+    return {"fused_chunk": kernel.kstep.launches,
+            "wire_pack": kernel.pack_wire.launches,
+            "wire_unpack": kernel.unpack_wire.launches}
+
+
+def expect_counts(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def words_err(a, b) -> int:
+    """Largest |a - b| of two int32 tensors (their shapes must agree)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"tensor mismatch {tuple(a.shape)}/{a.dtype} "
+                             f"vs {tuple(b.shape)}/{b.dtype}")
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def time_ms(fn, reps=20) -> float:
+    """Mean ms of `fn()` on the card over `reps` calls (CUDA events),
+    after one call to warm up."""
+    fn()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def dtypes_follow(state, cfg, st):
+    """Raise unless every leaf the narrow spec names has its dtype."""
+    spec, bad = state.narrow_spec(cfg), []
+    state._map_named(st, "", lambda n, a: bad.append(n)
+                     if n in spec and a.dtype != spec[n] else None)
+    if bad or not spec:
+        raise AssertionError(f"narrow dtypes off the spec: {bad}")
 
 
 def main() -> int:
@@ -455,12 +534,18 @@ def main() -> int:
     flag_sets += sorted({kernel.features(cfg) for _, cfg, *_ in runs}
                         - set(flag_sets))
     t = time.time()
-    reports = kernel.build(flag_sets)
-    print(f"[2] built fused_chunk.cu for {len(flag_sets)} flag sets in "
-          f"{time.time() - t:.1f} s", flush=True)
+    reports = kernel.build(flag_sets, codec=True)
+    print(f"[2] built fused_chunk.cu for {len(flag_sets)} flag sets and "
+          f"wire_codec.cu in {time.time() - t:.1f} s", flush=True)
     for flags in flag_sets:
         print(f"[2] {kernel.flag_name(flags)}: "
               f"{ptxas_lines(reports[flags])}", flush=True)
+    print("[2] wire_codec: " + " | ".join(
+        ("unpack: " if "unpack" in part.split("'")[1] else "pack: ")
+        + "; ".join(ln.strip() for ln in part.splitlines()
+                    if "stack frame" in ln or "registers" in ln)
+        for part in reports[kernel.CODEC].split(
+            "Compiling entry function")[1:]), flush=True)
 
     # 3. the safety fold on planted violations
     # (the pressure knee's lowest rung: at the top one every client slot
@@ -694,6 +779,256 @@ def main() -> int:
           f"{int(m.elections)}; dropping any one clause changes the final "
           f"state ({', '.join(changed)}), safety all 1", flush=True)
 
+    paths = {}   # launches of each path of the slice's dials
+
+    # (a) the packed wire: bench.py --pack-wire's dials, each run held
+    # to phase 5's at every chunk boundary, the codec's words to the
+    # plain pack of the same state
+    codec_err, codec_n = 0, {"wire_pack": 0, "wire_unpack": 0}
+    for label in ("headline", "config-4", "clients", "nemesis"):
+        _, cfg, g, fl, _ = by_label[label]
+        pcfg = dataclasses.replace(cfg, **PACK_WIRE)
+        reset_counts(kernel)
+        outs, ms = chunked(kernel.kstep, pcfg, wire(label, pcfg, g, fl))
+        final = kernel.kfinish(pcfg, outs[-1], g)
+        got = counts(kernel)
+        expect_counts(f"(a) {label}", got, {"fused_chunk": 3,
+                                            "wire_pack": 4,
+                                            "wire_unpack": 4})
+        for k in codec_n:
+            codec_n[k] += got[k]
+        paths.setdefault("packed", 0)
+        paths["packed"] += got["fused_chunk"]
+        for at, (p_out, u_out) in enumerate(zip(outs, main[label][0])):
+            e = max_abs_err(finished(kernel, pcfg, p_out, g),
+                            finished(kernel, cfg, u_out, g))
+            work = kernel.unpack_wire(pcfg, p_out[0])
+            plain_work, ov = kernel.unpack(pcfg, p_out[0])
+            c = max(words_err(work, plain_work), words_err(work, u_out[0]),
+                    words_err(kernel.pack(pcfg, u_out[0]), p_out[0]),
+                    words_err(kernel.pack_wire(pcfg, work, p_out[0]),
+                              kernel.pack(pcfg, plain_work, ov)),
+                    words_err(p_out[1], u_out[1]))
+            if e or c or int(ov.sum()):
+                raise AssertionError(f"(a) {label}: packed != unpacked "
+                                     f"after chunk {at} (state {e}, codec "
+                                     f"{c}, ring flags {int(ov.sum())})")
+            codec_err = max(codec_err, c)
+        if max_abs_err(final, kernel.kfinish(cfg, main[label][0][-1], g)):
+            raise AssertionError(f"(a) {label}: final state differs")
+        rows = kernel.wire_words_per_group(pcfg, recorder.RING if fl else 0)
+        print(f"[a] {label} packed, {g} groups: {rows * 4} B/group at rest "
+              f"(unpacked {main[label][0][0][0].shape[0] * 4}); ms per launch "
+              f"{sum(ms) / len(ms):.2f} (unpacked, phase 5: "
+              f"{sum(main[label][1]) / len(main[label][1]):.2f}); "
+              f"launches {got}; 3 boundaries max abs err 0, codec words == "
+              f"plain pack/unpack", flush=True)
+    # the codec kernels and their plain versions, timed at the headline
+    _, cfg, g, _, _ = runs[0]
+    pcfg = dataclasses.replace(cfg, **PACK_WIRE)
+    rest = kernel.pack(pcfg, main["headline"][0][-1][0])
+    work = kernel.unpack_wire(pcfg, rest)
+    codec = {
+        "wire_unpack": dict(
+            replaces="raft_tpu/sim/pkernel.py:1901",
+            ms=time_ms(lambda: kernel.unpack_wire(pcfg, rest, work)),
+            plain_ms=time_ms(lambda: kernel.unpack(pcfg, rest), 5),
+            words=rest.shape[0] + work.shape[0]),
+        "wire_pack": dict(
+            replaces="raft_tpu/sim/pkernel.py:1847",
+            ms=time_ms(lambda: kernel.pack_wire(pcfg, work, rest)),
+            plain_ms=time_ms(lambda: kernel.pack(
+                pcfg, work, kernel.ring_flags(pcfg, rest)), 5),
+            words=rest.shape[0] + work.shape[0] + 1)}
+    for name, c in codec.items():
+        c["bound_ms"] = c["words"] * 4 * g / HBM_BYTES_PER_S * 1e3
+        print(f"[a] {name} at {g} headline groups: {c['ms']:.4f} ms per "
+              f"launch, plain {c['plain_ms']:.3f} ms, bound by bytes "
+              f"{c['bound_ms']:.4f} ms ({c['words'] * 4} B/group)",
+              flush=True)
+    del rest, work
+
+    # (b) wire_hist=False: State, lanes and Flight as phase 5's, the
+    # caller's histograms passed through
+    for label in ("headline", "clients"):
+        _, cfg, g, fl, _ = by_label[label]
+        hcfg = dataclasses.replace(cfg, wire_hist=False)
+        reset_counts(kernel)
+        outs, ms = chunked(kernel.kstep, hcfg, wire(label, hcfg, g, fl))
+        got = counts(kernel)
+        expect_counts(f"(b) {label}", got, {"fused_chunk": 3,
+                                            "wire_pack": 0,
+                                            "wire_unpack": 0})
+        paths["no_hist"] = paths.get("no_hist", 0) + got["fused_chunk"]
+        m5 = out[label][1]
+        base = run.metrics_init(g, clients=cfg.clients_u32 != 0,
+                                device=dev)._replace(
+            hist=m5.hist, client_hist=m5.client_hist)
+        for at, (h_out, u_out) in enumerate(zip(outs, main[label][0])):
+            st_h, m_h = kernel.kfinish(hcfg, h_out, g, base)
+            st_u, m_u = kernel.kfinish(cfg, u_out, g)
+            want = m_u._replace(hist=base.hist, client_hist=base.client_hist)
+            e = max(max_abs_err((st_h, m_h), (st_u, want)),
+                    max_abs_err(kernel.kflight(hcfg, h_out, g) or (),
+                                kernel.kflight(cfg, u_out, g) or ()))
+            if e or h_out[1].shape[0] != (3 if cfg.clients_u32 else 2):
+                raise AssertionError(f"(b) {label}: chunk {at} differs "
+                                     f"(max abs err {e})")
+        print(f"[b] {label} wire_hist=False, {g} groups: acc "
+              f"{h_out[1].shape[0]} words; ms per launch "
+              f"{sum(ms) / len(ms):.2f} (phase 5: "
+              f"{sum(main[label][1]) / len(main[label][1]):.2f}); "
+              f"3 boundaries max abs err 0, histograms passed through",
+              flush=True)
+
+    # (c) the narrow dials and donate_scan: values as phase 5's, dtypes
+    # on the spec, no latch
+    for label in ("config-4", "clients"):
+        _, cfg, g, fl, _ = by_label[label]
+        ncfg = dataclasses.replace(cfg, **NARROW)
+        st0 = state.init(ncfg, g, device=dev)
+        dtypes_follow(state, ncfg, st0)
+        reset_counts(kernel)
+        flight = recorder.flight_init(g, device=dev) if fl else None
+        leaves = kernel.kinit(ncfg, st0, flight=flight)[0]
+        outs, ms = chunked(kernel.kstep, ncfg, leaves)
+        got = counts(kernel)
+        expect_counts(f"(c) {label}", got, {"fused_chunk": 3,
+                                            "wire_pack": 0,
+                                            "wire_unpack": 0})
+        paths["narrow"] = paths.get("narrow", 0) + got["fused_chunk"]
+        for at, (n_out, u_out) in enumerate(zip(outs, main[label][0])):
+            st_n, m_n = kernel.kfinish(ncfg, n_out, g)   # refuses a latch
+            dtypes_follow(state, ncfg, st_n)
+            st_u, m_u = kernel.kfinish(cfg, u_out, g)
+            e = max(max_abs_err((state.widen_state(ncfg, st_n), m_n),
+                                (st_u, m_u)),
+                    max_abs_err(kernel.kflight(ncfg, n_out, g) or (),
+                                kernel.kflight(cfg, u_out, g) or ()))
+            if e or bool(state.narrow_overflow(st_n).any()):
+                raise AssertionError(f"(c) {label}: chunk {at} differs "
+                                     f"(max abs err {e})")
+        print(f"[c] {label} narrow + donate_scan, {g} groups: "
+              f"{len(state.narrow_spec(ncfg))} leaves narrow, ms per launch "
+              f"{sum(ms) / len(ms):.2f}; 3 boundaries max abs err 0, "
+              f"dtypes on the spec, no latch", flush=True)
+
+    # (d) the refusals, on the card
+    rcfg = dataclasses.replace(runs[0][1], pack_ring=True)
+    st = state.init(rcfg, 1000, device=dev)
+    lt = st.nodes.log_term.clone()
+    lt[7, 2, 5] = 1 << 16
+    leaves = kernel.kstep(rcfg, kernel.kinit(rcfg, st._replace(
+        nodes=st.nodes._replace(log_term=lt)))[0], 0, 20)
+    flagged = kernel.ring_flags(rcfg, leaves[0]).nonzero().flatten().tolist()
+    try:
+        kernel.kfinish(rcfg, leaves, 1000)
+        raise AssertionError("(d) kfinish took a set ring-overflow flag")
+    except ValueError as e:
+        if "pack_ring" not in str(e) or flagged != [7]:
+            raise
+        ring_msg = str(e)
+    ncfg = dataclasses.replace(runs[0][1], **NARROW)
+    wide = state.widen_state(ncfg, state.init(ncfg, 1000, device=dev))
+    term = wide.nodes.term.clone()
+    term[11, 1] = 1 << 16
+    leaves = kernel.kstep(ncfg, kernel.kinit(ncfg, wide._replace(
+        nodes=wide.nodes._replace(term=term)))[0], 0, 20)
+    try:
+        kernel.kfinish(ncfg, leaves, 1000)
+        raise AssertionError("(d) kfinish took a narrow overflow")
+    except ValueError as e:
+        if "narrow-dtype overflow latched in 1 group(s) (first: [11])" \
+                not in str(e):
+            raise
+        narrow_msg = str(e)
+    print(f"[d] refused on the card: {ring_msg[:60]}...; "
+          f"{narrow_msg[:66]}...", flush=True)
+
+    # (e) the memory of one headline kstep, beside the byte model
+    cfg, g = runs[0][1], runs[0][2]
+    memory = {}
+    leaves = None   # nothing but the launch's own tensors may come and go
+    for name, dials in (("off", {}),
+                        ("pack", dict(pack_bools=True, pack_ring=True)),
+                        ("pack+alias", PACK_WIRE),
+                        ("pack+alias+no-hist", dict(PACK_WIRE,
+                                                    wire_hist=False))):
+        mcfg = dataclasses.replace(cfg, **dials)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        leaves = kernel.kinit(mcfg, starts["headline"])[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        leaves = kernel.kstep(mcfg, leaves, 0, CHUNK)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        model = kernel.hbm_bytes(mcfg, g)
+        memory[name] = dict(measured=peak, model=model,
+                            resident_ceiling=kernel.hbm_ceiling_groups(mcfg),
+                            streamed_ceiling=kernel.streamed_ceiling_groups(
+                                dataclasses.replace(
+                                    mcfg, stream_groups=True,
+                                    cohort_blocks=STREAM_BLOCKS)))
+        leaves = None
+        print(f"[e] {name}: peak {peak} B measured, {model} B modelled "
+              f"(hbm_bytes; measured - model {peak - model} B, "
+              f"{peak / g:.2f} vs {model / g:.2f} B/group); ceilings on "
+              f"this card {memory[name]['resident_ceiling']} groups "
+              f"resident, {memory[name]['streamed_ceiling']} streamed "
+              f"(host {kernel.host_budget()} B, card "
+              f"{kernel.hbm_budget()} B)", flush=True)
+        if abs(peak - model) > 2 ** 20:
+            raise AssertionError(f"(e) {name}: measured peak {peak} B, "
+                                 f"model {model} B")
+
+    # (f) the headline at a million groups streamed through the card in
+    # windows of 100,352, against the resident run of the same groups
+    cfg = runs[0][1]
+    scfg = dataclasses.replace(cfg, pack_bools=True, pack_ring=True,
+                               stream_groups=True,
+                               cohort_blocks=STREAM_BLOCKS)
+    st0 = state.init(cfg, STREAM_GROUPS, device=dev)
+    torch.cuda.synchronize()
+    t = time.time()
+    outs, res_ms = chunked(kernel.kstep, cfg, kernel.kinit(cfg, st0)[0], 1)
+    resident = kernel.kfinish(cfg, outs[0], STREAM_GROUPS)
+    torch.cuda.synchronize()
+    t_res = time.time() - t
+    del outs
+    from raft_tpu_torch.parallel import cohort
+    reset_counts(kernel)
+    stats = {}
+    t = time.time()
+    streamed = cohort.prun_streamed(scfg, st0, CHUNK, stats=stats,
+                                    device=dev)
+    torch.cuda.synchronize()
+    t_str = time.time() - t
+    got = counts(kernel)
+    n_win = len(cohort.cohort_windows(scfg, STREAM_GROUPS))
+    expect_counts("(f) streamed", got, {"fused_chunk": n_win,
+                                        "wire_pack": 2 * n_win,
+                                        "wire_unpack": 2 * n_win})
+    paths["streamed"] = got["fused_chunk"]
+    e = max_abs_err(resident, streamed)
+    if e or n_win != -(-STREAM_GROUPS // kernel.window_groups(scfg)):
+        raise AssertionError(f"(f) streamed != resident (max abs err {e}, "
+                             f"{n_win} windows)")
+    rounds = run.total_rounds(streamed[1])
+    print(f"[f] streamed {STREAM_GROUPS} groups, {CHUNK} ticks, {n_win} "
+          f"windows of {kernel.window_groups(scfg)}: max abs err 0 against "
+          f"the resident run; {rounds} rounds, "
+          f"{rounds / stats['wall_s']:.1f} rounds/s over the pipeline's "
+          f"wall ({rounds / stats['compute_s']:.1f} over its launches); "
+          f"h2d {stats['h2d_s']:.4f} s, compute {stats['compute_s']:.4f} s, "
+          f"d2h {stats['d2h_s']:.4f} s, wall {stats['wall_s']:.4f} s, "
+          f"overlap efficiency {stats['overlap_efficiency_measured']:.4f}; "
+          f"prun_streamed {t_str:.2f} s end to end; the resident launch "
+          f"{res_ms[0]:.2f} ms, kinit-kstep-kfinish {t_res:.2f} s; launches "
+          f"{got}", flush=True)
+    del st0, resident, streamed
+
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with
     def bound(label, cfg, g):
@@ -731,13 +1066,22 @@ def main() -> int:
            "ms": head["ms"], "plain_ms": head["plain_ms"],
            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
            "library_ms": None,
+           "paths": paths,
            "instantiations": [
                {"flags": name, "launches": sum(launches[lb] for lb in labels),
                 "runs": {lb: per_run[lb] for lb in labels}}
                for name, labels in by_build.items()]}
+    recs = [rec] + [
+        {"name": name, "route": "cuda",
+         "source": "raft_tpu_torch/csrc/wire_codec.cu",
+         "replaces": c["replaces"], "launches": codec_n[name],
+         "max_abs_err": codec_err, "ms": c["ms"], "plain_ms": c["plain_ms"],
+         "bound_ms": c["bound_ms"], "bound_by": "bytes", "library_ms": None}
+        for name, c in codec.items()]
+    print(f"[7] memory {json.dumps(memory)}", flush=True)
     print(f"[7] total {time.time() - t_start:.1f} s", flush=True)
     print(card)
-    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"kernels": recs}))
     # The script drives one card, cuda:0.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

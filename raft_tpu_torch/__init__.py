@@ -8,7 +8,10 @@ Metrics can be held bit-identical to the reference at the same
 
 - ``sim.step.tick`` / ``sim.run.run``: the plain PyTorch tick and loop.
 - ``sim.kernel``: the fused-chunk CUDA kernel (``csrc/fused_chunk.cu``)
-  behind ``kinit``/``kstep``/``kfinish``/``prun``.
+  behind ``kinit``/``kstep``/``kfinish``/``prun``, with the packed wire's
+  codec kernels (``csrc/wire_codec.cu``) and the byte model.
+- ``parallel.cohort``: the fleet's wire in host memory, streamed through
+  one card (``prun_streamed``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

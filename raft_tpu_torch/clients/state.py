@@ -1,7 +1,8 @@
 """Per-group open-loop client state of the scheduled traffic model, as
 torch tensors: the JAX package's `clients/state.py`.
 
-Every leaf is int32 `[G, S]` (S = cfg.client_slots). This is client-side
+Every leaf is int32 `[G, S]` (S = cfg.client_slots), or the dtype of
+`NARROW_CLIENT_SPEC` in the narrow resident form (`narrow_clients`). This is client-side
 (environment) state, not replicated state: it rides `State.clients` so
 the run loop and the kernel wire carry it, but the tick sees it only
 through phase C's submit pulses. The replicated dedup tables are
@@ -28,6 +29,18 @@ def active_client_leaves(cfg) -> tuple:
     """The client leaves a universe carries, in ClientState order."""
     return CLIENT_LEAVES + (ADMISSION_LEAVES
                             if cfg.client_queue_cap > 0 else ())
+
+
+# The narrow resident dtypes of the client leaves under
+# `cfg.narrow_clients` (sim/state.py `narrow_spec`): op counters and tick
+# stamps at u16 (the overflow latch refuses a run past their range), the
+# 0/1 pulses at i8, the -1-sentinel ack latency at i16.
+NARROW_CLIENT_SPEC = {
+    "done": torch.uint16, "backlog": torch.uint16, "t_start": torch.uint16,
+    "t_sub": torch.uint16, "retries": torch.uint16,
+    "inflight": torch.int8, "submit": torch.int8,
+    "last_lat": torch.int16, "shed": torch.uint16,
+}
 
 
 class ClientState(NamedTuple):

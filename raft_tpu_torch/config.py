@@ -10,9 +10,11 @@ The port runs the default protocol with crash, partition and drop
 faults, PreVote, leadership transfer, single-server membership change,
 scheduled ReadIndex reads, scheduled exactly-once client traffic
 (sessions, with bounded admission) and nemesis programs (gray failures
-and storage pressure, `nemesis/program.py`). Every other feature raises
-`NotImplementedError` when the config is built, never partway through a
-run (`_UNPORTED`).
+and storage pressure, `nemesis/program.py`). Three registries of dials
+change where and how the state is held but never what a tick computes:
+the wire layout (`LAYOUT_FIELDS`, sim/kernel.py's packed wire codec),
+cohort streaming (`STREAM_FIELDS`, parallel/cohort.py) and the narrow
+resident dtypes (`NARROW_FIELDS`, sim/state.py `narrow_spec`).
 Validation failures raise `ValueError` (the JAX package asserts).
 """
 
@@ -51,20 +53,22 @@ def _prob_to_u32(p: float) -> int:
     return min(int(p * 4294967296.0), _U32)
 
 
-# (field, predicate on its value, what it is) for every feature the
-# port does not carry yet. Each is refused at construction.
-_UNPORTED = (
-    ("narrow_scalars", lambda v: v, "the narrow resident layout"),
-    ("narrow_ring", lambda v: v, "the narrow resident layout"),
-    ("narrow_mailbox", lambda v: v, "the narrow resident layout"),
-    ("narrow_clients", lambda v: v, "the narrow resident layout"),
-    ("donate_scan", lambda v: v, "scan donation"),
-    ("pack_bools", lambda v: v, "the packed wire layout"),
-    ("pack_ring", lambda v: v, "the packed wire layout"),
-    ("alias_wire", lambda v: v, "wire aliasing"),
-    ("wire_hist", lambda v: not v, "the histogram-free wire"),
-    ("stream_groups", lambda v: v, "cohort streaming"),
-)
+# Wire-layout dials (sim/kernel.py): how the fused-chunk kernel's wire is
+# laid out at rest between launches (bit-packed bools, 16-bit ring-term
+# deltas, the output written over the input, no histogram rows). Never
+# what a tick computes.
+LAYOUT_FIELDS = ("pack_bools", "pack_ring", "alias_wire", "wire_hist")
+
+# Residency dials (parallel/cohort.py): the fleet's wire in host memory,
+# paged through the card `cohort_blocks` 1,024-group blocks at a time.
+STREAM_FIELDS = ("stream_groups", "cohort_blocks")
+
+# Narrow resident dtypes (sim/state.py `narrow_spec`): the dtypes State
+# leaves are held at between ticks; every tick widens on entry and
+# narrows on exit, latching an overflow. `donate_scan` rides here as in
+# the JAX package.
+NARROW_FIELDS = ("narrow_scalars", "narrow_ring", "narrow_mailbox",
+                 "narrow_clients", "donate_scan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,11 +129,6 @@ class RaftConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "nemesis", _check_program(self.nemesis))
-        for field, on, what in _UNPORTED:
-            if on(getattr(self, field)):
-                raise NotImplementedError(
-                    f"raft_tpu_torch does not port {what} yet "
-                    f"({field}={getattr(self, field)!r}); see ROADMAP.md")
         _check(not self.sessions or self.cmds_per_tick == 0,
                "sessions=True needs cmds_per_tick=0: scheduled payloads "
                "hash the full 30-bit space, so bit 29 would be misread as "
@@ -163,6 +162,9 @@ class RaftConfig:
         _check(self.election_min > 2 * self.heartbeat_every,
                "election timeout must comfortably exceed the heartbeat "
                "cadence or steady-state leadership is impossible")
+        _check(not self.pack_ring or self.log_cap % 2 == 0,
+               "pack_ring packs two ring-term deltas per int32 word, so "
+               "log_cap must be even")
 
     @property
     def majority(self) -> int:

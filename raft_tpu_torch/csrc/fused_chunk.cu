@@ -75,7 +75,15 @@
 //
 // Metrics go to global accumulators: committed/leaderless/safety are wire
 // rows; the [H] histogram, the election count and the longest streak are
-// integer atomics into `acc` (exact in any order).
+// integer atomics into `acc` (exact in any order). With H = 0 (the
+// `wire_hist=False` dial) `acc` holds no histogram rows and the kernel tracks
+// none.
+//
+// In place. A null `wire_in` runs the ticks on `out` as it stands, with no
+// copy: the wrapper passes it for the output written over the input
+// (`alias_wire`) and for the working wire the codec unpacks
+// (csrc/wire_codec.cu), so the two `__restrict__` pointers never alias. The
+// codec runs only at the launch boundary and never inside this kernel.
 //
 // What bounds it on the H100: the per-tick state stays in device memory
 // (about 4.7 KB per group; at 100K groups far more than the 50 MB L2), so
@@ -1295,7 +1303,8 @@ __device__ void client_update(const Group& gr, CL& cl, int t, int* acc,
     if (acked) {
       cl.done[q] += 1;
       cl.inflight[q] = 0;
-      atomicAdd(&acc[a.hist + 2 + min(cl.last_lat[q], a.hist - 1)], 1);
+      if (a.hist > 0)
+        atomicAdd(&acc[a.hist + 2 + min(cl.last_lat[q], a.hist - 1)], 1);
       cmax = max(cmax, cl.last_lat[q]);
     }
     bool arrive = cl.done[q] + cl.backlog[q] + cl.inflight[q] <= SEQ_MASK &&
@@ -1346,8 +1355,9 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
   const int gi = blockIdx.x * blockDim.x + threadIdx.x;
   if (gi >= a.G) return;
   const size_t G = a.G;
-  for (int r = 0; r < a.n_words; ++r)
-    out[(size_t)r * G + gi] = wire_in[(size_t)r * G + gi];
+  if (wire_in != nullptr)   // null: the tick runs in place on `out`
+    for (int r = 0; r < a.n_words; ++r)
+      out[(size_t)r * G + gi] = wire_in[(size_t)r * G + gi];
 
   int* db[2] = {out + (size_t)a.db_start * G, scratch};
   Group gr{a, out, db[0], db[1], G, gi, 0u};
@@ -1444,7 +1454,7 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
     }
     const bool elected = has_leader && leaderless > 0;
     if (elected) {
-      atomicAdd(&acc[min(leaderless, a.hist - 1)], 1);
+      if (a.hist > 0) atomicAdd(&acc[min(leaderless, a.hist - 1)], 1);
       elections += 1;
       max_latency = max(max_latency, leaderless);
     }
@@ -1503,7 +1513,8 @@ fused_chunk_kernel(const int* __restrict__ wire_in, int* __restrict__ out,
 
 }  // namespace
 
-// Launch on `stream`. `offsets` (n_offsets == N_FIELDS ints, -1 for a
+// Launch on `stream`; a null `wire_in` runs in place on `wire_out`.
+// `offsets` (n_offsets == N_FIELDS ints, -1 for a
 // field the config does not carry), `params` (n_params == N_PARAMS
 // int64s) and `nem` (the seams' clause counts, then the clauses' 8 words
 // each, grouped by seam; n_nem words) are host arrays. Returns the
@@ -1552,7 +1563,7 @@ extern "C" int fused_chunk_launch(const void* wire_in, void* wire_out,
   a.cap = static_cast<int>(params[P_CAP]);
   a.ring = static_cast<int>(params[P_RING]);
   if (a.K < 1 || a.K > KMAX || a.L < 1 || a.L > LMAX || a.G < 1 ||
-      a.ring < 0 || (CLIENTS && (a.S < 1 || a.S > SMAX)))
+      a.ring < 0 || a.hist < 0 || (CLIENTS && (a.S < 1 || a.S > SMAX)))
     return -1;
   // The config's feature flags must be this build's.
   if (params[P_PREVOTE] != PREVOTE || params[P_TRANSFER] != TRANSFER ||

@@ -22,7 +22,7 @@ from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.node import LEADER
 from raft_tpu_torch.sim import check
 from raft_tpu_torch.sim.run import Metrics, metrics_init, metrics_update
-from raft_tpu_torch.sim.state import I32, State
+from raft_tpu_torch.sim.state import I32, State, widen_state
 from raft_tpu_torch.sim.step import tick
 
 RING = 64   # ticks of history; slot t % RING holds tick t
@@ -109,8 +109,9 @@ def run_recorded(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0,
         flight = flight_init(g, device=dev)
     for t in range(int(t0), int(t0) + int(n_ticks)):
         st = tick(cfg, st, t)
-        flight = flight_update(cfg, flight, st, metrics, t)
-        metrics = metrics_update(metrics, st, cfg.log_cap)
+        wide = widen_state(cfg, st)
+        flight = flight_update(cfg, flight, wide, metrics, t)
+        metrics = metrics_update(metrics, wide, cfg.log_cap)
     return st, metrics, flight
 
 

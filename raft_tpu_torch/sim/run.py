@@ -27,7 +27,7 @@ import torch
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.node import LEADER
 from raft_tpu_torch.sim import check
-from raft_tpu_torch.sim.state import I32, State
+from raft_tpu_torch.sim.state import I32, State, widen_state
 from raft_tpu_torch.sim.step import tick
 
 HIST_SIZE = 512
@@ -113,14 +113,21 @@ def run(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0,
         metrics: Metrics | None = None):
     """Run `n_ticks` global ticks starting at absolute tick `t0`, on the
     device the state lies on. Returns (state, metrics); call again with
-    the returned pair and `t0 + n_ticks` to continue the same universe."""
+    the returned pair and `t0 + n_ticks` to continue the same universe.
+
+    Under the narrow dials the state stays narrow between ticks and the
+    metrics fold on its widened view. `cfg.donate_scan` is accepted and
+    changes nothing: it is the JAX package's donated scan carry (one
+    resident copy of the state instead of an input and an output), and
+    this loop already holds one carry, dropping each tick's input as
+    soon as the next state exists."""
     if metrics is None:
         metrics = metrics_init(st.alive_prev.shape[0],
                                clients=st.clients is not None,
                                device=st.alive_prev.device)
     for t in range(int(t0), int(t0) + int(n_ticks)):
         st = tick(cfg, st, t)
-        metrics = metrics_update(metrics, st, cfg.log_cap)
+        metrics = metrics_update(metrics, widen_state(cfg, st), cfg.log_cap)
     return st, metrics
 
 

@@ -22,6 +22,12 @@ carries the sender's snapshot table (`is_req_snap_sessions`,
 `[G, K_dst, K_src, S]`) and `State.clients` the client state
 (clients/state.py).
 
+Narrow resident form (`narrow_*` dials, `narrow_spec`): the leaves the
+spec names are held at u16/i16/i8 between ticks; every tick widens them
+on entry, computes at int32 and narrows on exit, latching bit 31 of
+`group_id` in a group where a value does not survive the narrowing.
+Every host boundary refuses a latched state (`check_narrow_overflow`).
+
 `from_numpy` / `to_numpy` carry a State (or Metrics, or Flight) across
 from and to numpy arrays — the numpy side is exactly a JAX State with every leaf
 passed through `np.asarray` — so both packages can start from one
@@ -32,10 +38,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from raft_tpu_torch.clients.state import ClientState, clients_init
+from raft_tpu_torch.clients.state import (NARROW_CLIENT_SPEC, ClientState,
+                                          active_client_leaves,
+                                          clients_init)
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.node import FOLLOWER, NO_VOTE
 from raft_tpu_torch.utils import trng
@@ -43,6 +53,7 @@ from raft_tpu_torch.utils import trng
 I32 = torch.int32
 U32 = torch.int64   # u32 values in int64 (module docstring)
 BOOL = torch.bool
+U16, I16, I8 = torch.uint16, torch.int16, torch.int8
 
 
 class PerNode(NamedTuple):
@@ -238,11 +249,156 @@ def init(cfg: RaftConfig, n_groups: int | None = None,
         ack_time=full(-1, k), sched_read_index=full(-1),
         sched_read_reg=z(I32), reads_done=z(I32), **sess,
     )
-    return State(nodes=nodes, mailbox=empty_mailbox(cfg, (g, k, k), device),
-                 alive_prev=torch.ones((g, k), dtype=BOOL, device=device),
-                 group_id=torch.arange(g, dtype=I32, device=device),
-                 clients=(clients_init(cfg, g, device) if cfg.clients_u32
-                          else None))
+    st = State(nodes=nodes, mailbox=empty_mailbox(cfg, (g, k, k), device),
+               alive_prev=torch.ones((g, k), dtype=BOOL, device=device),
+               group_id=torch.arange(g, dtype=I32, device=device),
+               clients=(clients_init(cfg, g, device) if cfg.clients_u32
+                        else None))
+    # The resident form is the narrow one when a narrow dial is on; the
+    # initial values are all in range, so this narrowing never latches.
+    return narrow_state(cfg, st)
+
+
+# ------------------------------------------------ narrow resident form
+
+# Bit 31 of the int32 group_id: the sticky narrow-overflow latch.
+NARROW_LATCH = -(2 ** 31)
+
+# PerNode scalars at u16 under narrow_scalars (nonnegative terms, log
+# indices, counters and clocks).
+_NODE_U16 = ("term", "snap_index", "snap_term", "rng_draws",
+             "last_index", "commit", "applied", "next_index",
+             "match_index", "election_elapsed", "heartbeat_elapsed",
+             "deadline", "leader_elapsed", "sched_read_reg",
+             "reads_done")
+# Mailbox term and index payloads at u16 under narrow_mailbox; the
+# PreVote slots only when the universe carries them.
+_MB_U16 = ("rv_req_term", "rv_req_lli", "rv_req_llt", "rv_resp_term",
+           "ae_req_term", "ae_req_prev_index", "ae_req_prev_term",
+           "ae_req_commit", "ae_resp_term", "ae_resp_match",
+           "is_req_term", "is_req_snap_index", "is_req_snap_term",
+           "is_resp_term", "is_resp_match")
+_MB_PV_U16 = ("pv_req_term", "pv_req_lli", "pv_req_llt", "pv_resp_term",
+              "pv_resp_req_term")
+
+
+def narrow_spec(cfg: RaftConfig) -> dict:
+    """Dot-path leaf name -> narrow dtype of every State leaf the
+    config's narrow dials re-declare; empty when every dial is off. The
+    voter bitmasks narrow only while they fit 16 bits (k <= 16)."""
+    spec: dict = {}
+    if cfg.narrow_scalars:
+        for n in _NODE_U16:
+            spec[f"nodes.{n}"] = U16
+        for n in ("voted_for", "role", "leader_id"):
+            spec[f"nodes.{n}"] = I8
+        spec["nodes.ack_time"] = I16
+        spec["nodes.sched_read_index"] = I16
+        if cfg.k <= 16:
+            spec["nodes.snap_voters"] = U16
+    if cfg.narrow_ring:
+        spec["nodes.log_term"] = U16
+    if cfg.narrow_mailbox:
+        for n in _MB_U16:
+            spec[f"mailbox.{n}"] = U16
+        if cfg.prevote:
+            for n in _MB_PV_U16:
+                spec[f"mailbox.{n}"] = U16
+        if cfg.transfer_u32:
+            spec["mailbox.tn_term"] = U16
+        spec["mailbox.ae_req_n"] = I8
+        if cfg.k <= 16:
+            spec["mailbox.is_req_snap_voters"] = U16
+    if cfg.narrow_clients and cfg.clients_u32:
+        spec["nodes.session_seq"] = I16
+        spec["nodes.snap_session_seq"] = I16
+        spec["mailbox.is_req_snap_sessions"] = I16
+        for n in active_client_leaves(cfg):
+            spec[f"clients.{n}"] = NARROW_CLIENT_SPEC[n]
+    return spec
+
+
+def full_narrow_spec(cfg: RaftConfig) -> dict:
+    """The spec with every narrow dial on."""
+    return narrow_spec(dataclasses.replace(
+        cfg, narrow_scalars=True, narrow_ring=True, narrow_mailbox=True,
+        narrow_clients=True))
+
+
+def narrow_active(cfg: RaftConfig) -> bool:
+    """True iff the resident form differs from the wide one (the spec
+    decides: `narrow_clients` alone on a clients-off universe maps no
+    leaf)."""
+    return bool(narrow_spec(cfg))
+
+
+def _map_named(tree, prefix: str, fn):
+    """Rebuild a NamedTuple tree, applying fn(dot path, leaf) to every
+    leaf that is not None."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_named(getattr(tree, f), f"{prefix}{f}.",
+                                       fn) for f in tree._fields))
+    return fn(prefix[:-1], tree)
+
+
+def narrow_state(cfg: RaftConfig, st: State) -> State:
+    """Wide State -> the config's narrow resident form, latching bit 31
+    of `group_id` in every group holding a value that does not survive
+    the round trip (sticky: the other lanes pass through). Identity when
+    every narrow dial is off."""
+    spec = narrow_spec(cfg)
+    if not spec:
+        return st
+    overflow = []
+
+    def leaf(name, a):
+        dt = spec.get(name)
+        if dt is None or a.dtype == dt:
+            return a
+        na = a.to(dt)
+        overflow.append((na.to(a.dtype) != a).reshape(a.shape[0], -1)
+                        .any(dim=1))
+        return na
+
+    out = _map_named(st, "", leaf)
+    if not overflow:
+        return out
+    ov = torch.stack(overflow).any(dim=0)
+    return out._replace(group_id=torch.where(
+        ov, out.group_id | NARROW_LATCH, out.group_id))
+
+
+def widen_state(cfg: RaftConfig, st: State) -> State:
+    """Narrow resident form -> the int32 compute form (zero-extending the
+    unsigned lanes, sign-extending the signed ones). `group_id` passes
+    through, latch and all. Identity when every narrow dial is off."""
+    spec = narrow_spec(cfg)
+    if not spec:
+        return st
+    return _map_named(st, "", lambda name, a: a.to(I32)
+                      if name in spec and a.dtype != I32 else a)
+
+
+def narrow_overflow(st: State) -> torch.Tensor:
+    """bool[G]: the groups whose narrow-overflow latch has fired."""
+    return st.group_id < 0
+
+
+def check_narrow_overflow(cfg: RaftConfig, st: State) -> None:
+    """The host-boundary refusal (kfinish, the stream driver): raise
+    ValueError naming the latched groups."""
+    if not narrow_active(cfg):
+        return
+    bad = narrow_overflow(st).nonzero().flatten().tolist()
+    if bad:
+        raise ValueError(
+            f"narrow-dtype overflow latched in {len(bad)} group(s) "
+            f"(first: {bad[:8]}): a value outgrew its narrow native dtype "
+            f"(DESIGN.md §18 range table). Re-run with the narrow_* dials "
+            f"off — results after the latch tick are invalid and are "
+            f"refused rather than silently truncated")
 
 
 # ------------------------------------------------- carrying state across
@@ -289,5 +445,6 @@ def from_numpy(tree, device="cuda"):
 
 def to_numpy(tree):
     """The port's State, Metrics or Flight as numpy arrays with the JAX
-    package's dtypes (bool, int32, and uint32 for the digests)."""
+    package's dtypes (bool, int32, uint32 for the digests, and the
+    narrow dtypes of a narrow resident State)."""
     return _map(tree, type(tree), _torch_to_np)

@@ -20,7 +20,11 @@ masks occupancy bits, dead nodes' state is frozen wholesale and their
 outbox erased (their in-flight mail survives), and the dead->alive edge
 rewinds volatile state.
 
-The features here (config.py refuses the rest): RequestVote,
+Narrow resident form (the `narrow_*` dials, sim/state.py `narrow_spec`):
+`tick` widens the state on entry, runs the unchanged int32 tick
+(`_tick_wide`) and narrows it on exit, latching an overflow.
+
+The features here: RequestVote,
 AppendEntries, InstallSnapshot, fire-hose commands, commit/apply/
 compaction, crash/partition/drop faults, four protocol features and
 scheduled client traffic, each gated statically on its config knob as
@@ -48,7 +52,9 @@ from raft_tpu_torch.core.node import (CANDIDATE, FOLLOWER, LEADER, NO_VOTE,
                                       PRECANDIDATE)
 from raft_tpu_torch.ops import quorum
 from raft_tpu_torch.sim.state import (I32, Mailbox, PerNode, State,
-                                      empty_mailbox, present_fields)
+                                      empty_mailbox, narrow_active,
+                                      narrow_state, present_fields,
+                                      widen_state)
 from raft_tpu_torch.utils import trng
 
 W = torch.where
@@ -873,7 +879,16 @@ def _filter_mailbox(cfg, mb: Mailbox, t, alive_now, group_id) -> Mailbox:
 
 def tick(cfg: RaftConfig, st: State, t: int) -> State:
     """One global tick over all [G, K] replicas. `t` is the absolute
-    tick (the fault schedules hash it)."""
+    tick (the fault schedules hash it). A narrow resident state is
+    widened on entry and narrowed on exit (the latch records an
+    overflow); the tick itself always computes at int32."""
+    if not narrow_active(cfg):
+        return _tick_wide(cfg, st, t)
+    return narrow_state(cfg, _tick_wide(cfg, widen_state(cfg, st), t))
+
+
+def _tick_wide(cfg: RaftConfig, st: State, t: int) -> State:
+    """The int32 tick body."""
     g, k = st.alive_prev.shape
     dev = st.alive_prev.device
     g_grid = st.group_id[:, None].expand(g, k)

@@ -9,8 +9,11 @@ PreVote and membership change), on the flight ring, on nemesis programs
 (the gray mix, the storage-pressure mix under admission-capped clients,
 one clause of every kind at k=3 and k=5, a program at the kernel's clause
 bound), and on states with planted safety violations (where the kernel's
-own safety fold must clear exactly the planted groups). Needs an NVIDIA
-GPU and nvcc; skips without CUDA.
+own safety fold must clear exactly the planted groups). The packed wire
+codec kernels against plain `pack`/`unpack` on chip_smoke.py's four
+packed universes at 1,000 groups, the histogram-free launch, the
+aliased in-place launch, the narrow dials and the streamed pipeline.
+Needs an NVIDIA GPU and nvcc; skips without CUDA.
 Imports no JAX, so it runs on a card machine without it (skipping the
 suite's JAX conftest):
 
@@ -252,9 +255,141 @@ def test_kernel_refuses_a_program_past_its_clause_bound(cuda):
 @pytest.mark.cuda
 def test_every_flag_set_builds(cuda):
     """All 64 feature flag sets compile (nvcc, sm_90a), not only the ones
-    the universes above launch."""
+    the universes above launch, and so does the codec."""
     sets = list(itertools.product((False, True), repeat=len(kernel.FEATURES)))
-    reports = kernel.build(sets)
-    assert len(reports) == 64
+    reports = kernel.build(sets, codec=True)
+    assert len(reports) == 65
     for flags in sets:
         assert "registers" in reports[flags], kernel.flag_name(flags)
+    assert reports[kernel.CODEC].count("registers") == 2
+
+
+PACK_WIRE = dict(pack_bools=True, pack_ring=True, alias_wire=True)
+# chip_smoke.py phase (a)'s four universes at 1,000 groups
+CODEC_UNIVERSES = {
+    "headline": (dict(seed=42), False),
+    "config4": (CONFIG4, False),
+    "clients": (BENCH_CLIENTS, True),
+    "nemesis": (dict(seed=48, crash_prob=0.1, crash_epoch=64,
+                     drop_prob=0.02, nemesis=nemesis.gray_mix(73)), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CODEC_UNIVERSES))
+def test_codec_kernels_match_plain_on_card(cuda, name):
+    """The packed, aliased launch (unpack -> tick in place -> pack) equals
+    kstep_plain at every chunk boundary, and at each boundary the codec
+    kernels' words equal plain `unpack`/`pack`, with the sticky ring flags
+    of a planted third of the groups ORed in."""
+    kw, fl = CODEC_UNIVERSES[name]
+    cfg = RaftConfig(n_groups=1000, **kw, **PACK_WIRE)
+    flight = recorder.flight_init(1000, device=cuda) if fl else None
+    leaves, g = kernel.kinit(cfg, state.init(cfg, device=cuda),
+                             flight=flight)
+    plain = tuple(x.clone() for x in leaves)
+    before = (kernel.kstep.launches, kernel.pack_wire.launches,
+              kernel.unpack_wire.launches)
+    for at, n in ((0, 33), (33, 40)):
+        wire_in = leaves[0]
+        leaves = kernel.kstep(cfg, leaves, at, n)
+        assert leaves[0] is wire_in
+        plain = kernel.kstep_plain(cfg, plain, at, n)
+        torch.cuda.synchronize()
+        assert torch.equal(leaves[0], plain[0]) and \
+            torch.equal(leaves[1], plain[1])
+        work = kernel.unpack_wire(cfg, leaves[0])
+        want, ov = kernel.unpack(cfg, leaves[0])
+        assert torch.equal(work, want) and int(ov.sum()) == 0
+        flags = leaves[0].clone()
+        row = kernel._rest_at(cfg, kernel._ring_of(cfg, flags))[
+            kernel.RING_BASE][0]
+        flags[row, ::3] |= -(2 ** 31)
+        got = kernel.pack_wire(cfg, work, flags)
+        assert torch.equal(got, kernel.pack(cfg, want,
+                                            kernel.ring_flags(cfg, flags)))
+        assert torch.equal(kernel.pack_wire(cfg, work, flags, out=flags),
+                           got)
+    assert (kernel.kstep.launches, kernel.pack_wire.launches,
+            kernel.unpack_wire.launches) == (before[0] + 2, before[1] + 6,
+                                             before[2] + 4)
+    assert_same(cfg, g, leaves, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(n_groups=1000, seed=42),
+                                dict(n_groups=1000, **BENCH_CLIENTS)],
+                         ids=["headline", "bench_clients"])
+def test_histogram_free_launch_on_card(cuda, kw):
+    """wire_hist=False launches with H = 0: acc keeps its two (three)
+    counters, the kernel writes no histogram row, and the launch equals
+    kstep_plain."""
+    cfg = RaftConfig(**kw, wire_hist=False)
+    leaves, g = kernel.kinit(cfg, state.init(cfg, device=cuda))
+    plain = leaves
+    for at, n in ((0, 33), (33, 40)):
+        leaves = kernel.kstep(cfg, leaves, at, n)
+        plain = kernel.kstep_plain(cfg, plain, at, n)
+    torch.cuda.synchronize()
+    assert leaves[1].shape == (3 if cfg.clients_u32 else 2,)
+    assert int(leaves[1][0]) > 0   # elections counted
+    assert torch.equal(leaves[0], plain[0])
+    assert torch.equal(leaves[1], plain[1])
+
+
+@pytest.mark.cuda
+def test_aliased_launch_runs_in_place_on_card(cuda):
+    """alias_wire without packing: the tick kernel runs in place on the
+    input (no copy, no aliased restrict pointers) and returns it."""
+    cfg = RaftConfig(n_groups=1000, alias_wire=True, **FEATURE_MIX)
+    leaves, g = kernel.kinit(cfg, state.init(cfg, device=cuda))
+    plain = tuple(x.clone() for x in leaves)
+    ptrs = (leaves[0].data_ptr(), leaves[1].data_ptr())
+    for at, n in ((0, 33), (33, 40)):
+        leaves = kernel.kstep(cfg, leaves, at, n)
+        plain = kernel.kstep_plain(cfg, plain, at, n)
+    torch.cuda.synchronize()
+    assert (leaves[0].data_ptr(), leaves[1].data_ptr()) == ptrs
+    assert_same(cfg, g, leaves, plain)
+
+
+@pytest.mark.cuda
+def test_narrow_dials_on_card(cuda):
+    """kinit widens a narrow State, the kernel computes wide, kfinish
+    narrows it again: values equal the wide launch's, dtypes the spec's."""
+    wide = RaftConfig(n_groups=1000, **BENCH_CLIENTS)
+    cfg = RaftConfig(n_groups=1000, narrow_scalars=True, narrow_ring=True,
+                     narrow_mailbox=True, narrow_clients=True,
+                     donate_scan=True, **BENCH_CLIENTS)
+    sn, mn = kernel.prun(cfg, state.init(cfg, device=cuda), 73)
+    sw, mw = kernel.prun(wide, state.init(wide, device=cuda), 73)
+    assert sn.nodes.term.dtype == torch.uint16
+    assert sn.clients.last_lat.dtype == torch.int16
+    assert not state.narrow_overflow(sn).any()
+    for a, b in zip(state.to_numpy(state.widen_state(cfg, sn)).nodes,
+                    state.to_numpy(sw).nodes):
+        assert a is None or (a == b).all()
+    assert all(torch.equal(a, b) for a, b in zip(mn, mw) if a is not None)
+
+
+@pytest.mark.cuda
+def test_streamed_matches_resident_on_card(cuda):
+    """3,000 groups in three one-block windows through the card's
+    pipeline (two copy streams, events), packed: equal to the resident
+    launch, with the measured split filled in."""
+    from raft_tpu_torch.parallel import cohort
+    base = RaftConfig(n_groups=3000, **CONFIG4)
+    cfg = RaftConfig(n_groups=3000, stream_groups=True, cohort_blocks=1,
+                     pack_bools=True, pack_ring=True, **CONFIG4)
+    st0 = state.init(base, device=cuda)
+    res = kernel.prun(base, st0, 60)
+    stats = {}
+    out = cohort.prun_streamed(cfg, st0, 60, chunk_ticks=20, stats=stats)
+    for a, b in zip(res, out):
+        for x, y in zip(state.to_numpy(a), state.to_numpy(b)):
+            if isinstance(x, tuple):
+                assert all(u is None or (u == v).all() for u, v in zip(x, y))
+            elif x is not None:
+                assert (x == y).all()
+    assert stats["cohorts"] == 3 and stats["launches"] == 9
+    assert 0 < stats["overlap_efficiency_measured"] <= 1.0 + 1e-6

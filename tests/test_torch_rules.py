@@ -13,6 +13,7 @@ import pytest
 
 from raft_tpu_torch.clients import state as cstate
 from raft_tpu_torch.obs import recorder
+from raft_tpu_torch.parallel import cohort
 from raft_tpu_torch.sim import kernel, run, state
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -51,9 +52,11 @@ def test_scan_sees_imports():
 
 
 @pytest.mark.parametrize("fn", [state.init, run.metrics_init,
-                                cstate.clients_init, recorder.flight_init],
+                                cstate.clients_init, recorder.flight_init,
+                                cohort.host_wire, cohort.prun_streamed],
                          ids=["state.init", "run.metrics_init",
-                              "clients_init", "flight_init"])
+                              "clients_init", "flight_init", "host_wire",
+                              "prun_streamed"])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -73,6 +76,30 @@ def test_kernel_source_and_build_flags():
     assert kernel.flag_name((False,) * 5 + (True,)) == "nemesis"
     assert kernel.flag_name((False,) * 4 + (True, True)) == \
         "clients+nemesis"
+
+
+def test_codec_source_and_plan():
+    """The codec kernels' source is the one the wrapper builds, names the
+    TPU functions it replaces, and parses the plan `_codec_plan` sends:
+    a 12-word head, the bool slots' rows, then (working, at-rest, rows)
+    runs that tile every row not rewritten."""
+    from raft_tpu_torch.config import RaftConfig
+    assert kernel.CODEC_SOURCE.relative_to(ROOT) == \
+        Path("raft_tpu_torch/csrc/wire_codec.cu")
+    text = kernel.CODEC_SOURCE.read_text()
+    for needle in ("`_pack_wire` (:1847)", "`_unpack_wire` (:1901)",
+                   "`_ring_base_ov` (:1837)", '"C" int wire_unpack_launch',
+                   '"C" int wire_pack_launch', "if (n_plan < 12)"):
+        assert needle in text, needle
+    cfg = RaftConfig(seed=42, prevote=True, pack_bools=True, pack_ring=True)
+    plan = kernel._codec_plan(cfg, 0).tolist()
+    n_mb = plan[11]
+    assert plan[:2] == [5, 32] and n_mb == len(kernel._mb_bools(cfg)) == 11
+    runs = plan[12 + n_mb + 1:]
+    assert len(runs) == 3 * plan[12 + n_mb]
+    copied = sum(runs[2::3])
+    rewritten = 25 + 5 + 160 + n_mb * 25
+    assert copied + rewritten == kernel.working_words_per_group(cfg)
 
 
 def test_wire_fields_follow_the_kernel_enum():

@@ -3,10 +3,11 @@ package's (raft_tpu.sim.step.tick): full State equality after every
 tick, tolerance 0, on five universes — the kernel fault mix, the
 headline width, the config-4 fault knobs at headline width, the
 election-rounds knobs (no commands: leaders only heartbeat), and the
-multi-source AppendEntries universe. Also: every feature the port does
-not carry yet (the layout dials, cohort streaming) is refused when the
-config is built while a nemesis program is accepted, and the config
-validation (the client-traffic rules included) is the reference's."""
+multi-source AppendEntries universe. Also: the layout and residency
+dials (packing, aliasing, the histogram-free wire, the narrow dials,
+donation, cohort streaming) are accepted as the reference takes them,
+beside a nemesis program, and the config validation (the
+client-traffic and pack_ring rules included) is the reference's."""
 
 from __future__ import annotations
 
@@ -63,7 +64,11 @@ def test_tick_matches_jax_every_tick(name):
         assert terms > 1, "no leadership churn - fault paths untested"
 
 
-UNPORTED = [
+# The layout and residency dials, each away from its default. The two
+# tests below keep the names they had while the port refused these
+# dials, so the test record follows each case across the change; what
+# they check now is in their docstrings.
+LAYOUT_DIALS = [
     dict(narrow_scalars=True), dict(narrow_ring=True),
     dict(narrow_mailbox=True), dict(narrow_clients=True),
     dict(donate_scan=True), dict(pack_bools=True), dict(pack_ring=True),
@@ -71,17 +76,30 @@ UNPORTED = [
 ]
 
 
-@pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", LAYOUT_DIALS, ids=lambda kw: next(iter(kw)))
 def test_unported_feature_refused_at_construction(kw):
-    with pytest.raises(NotImplementedError, match="does not port"):
-        RaftConfig(**kw)
+    """Accepted, no longer refused: the config takes every layout and
+    residency dial, and the field is the reference's."""
+    (field, value), = kw.items()
+    assert getattr(RaftConfig(**kw), field) == \
+        getattr(JaxConfig(**kw), field) == value
 
 
 def test_nemesis_program_accepted_layout_dial_still_refused():
+    """Accepted, no longer refused: a nemesis program rides with a
+    layout dial, as in the reference."""
     prog = ((1, 0, 10, 1, 1, 1, 0, 0),)
     assert RaftConfig(nemesis=prog).nemesis == JaxConfig(nemesis=prog).nemesis
-    with pytest.raises(NotImplementedError, match="does not port"):
-        RaftConfig(nemesis=prog, pack_ring=True)
+    cfg, jcfg = (C(nemesis=prog, pack_ring=True) for C in (RaftConfig,
+                                                           JaxConfig))
+    assert cfg.pack_ring and cfg.nemesis == jcfg.nemesis
+
+
+def test_pack_ring_with_an_odd_log_cap_raises():
+    with pytest.raises(AssertionError):
+        JaxConfig(log_cap=31, pack_ring=True)
+    with pytest.raises(ValueError, match="log_cap must be even"):
+        RaftConfig(log_cap=31, pack_ring=True)
 
 
 CLIENTS = dict(sessions=True, cmds_per_tick=0, client_rate=0.1)
