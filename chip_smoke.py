@@ -4,7 +4,8 @@
 
 Drives raft_tpu_torch's paths at full width: the batched Raft tick at
 k=5, L=32, E=4 through the fused-chunk CUDA kernel
-(raft_tpu_torch/csrc/fused_chunk.cu), held bit-identical to the port's
+(raft_tpu_torch/csrc/fused_chunk.cu: each group's state in shared memory
+for the whole launch, one lane per node), held bit-identical to the port's
 plain PyTorch tick on each path's own inputs. Phases, each of which
 raises on failure:
 
@@ -13,7 +14,9 @@ raises on failure:
    sets without nemesis and the two nemesis sets the runs launch (the
    card test builds all 64), and the codec kernels, one nvcc per build,
    all started together; print each build's registers, frame and spills
-   (ptxas -v);
+   (ptxas -v), and each run's shared memory per group and block shape
+   from the launcher's occupancy query (lanes per group, groups and
+   threads per block, shared bytes per block, blocks and groups per SM);
 3. the safety fold: a headline state at 4,096 groups, a feature-mix
    state, a client-traffic state and a storage-pressure state at 1,000
    groups, each with one group planted per safety predicate (and per
@@ -78,9 +81,16 @@ launch counts set to 0 just before it and read just after:
    (cohort_blocks=98), equal to the resident kernel run of the same
    million groups; rounds/s and the pipeline's h2d/compute/d2h/wall
    split and overlap efficiency;
+(g) near the ceiling: one resident headline launch at 97% of the most
+   groups `kernel.hbm_budget` (free memory less its margin) allows, the
+   fleet's wire built a window at a time, then a fresh headline fleet of
+   110% of that ceiling streamed as in (f) with its State never whole;
+   in each, the first 100,000 groups equal the headline's first chunk;
 7. a `kernels` JSON line: launches, times and bound of the fused chunk
    and the two codec kernels, and the same for each flag set's build by
-   run.
+   run (with each run's steady-state time: three launches more from its
+   start, CUDA events), with the build's ptxas numbers and each run's
+   block shape.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -92,6 +102,7 @@ import collections
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -403,16 +414,30 @@ def all_runs():
                      False, 1),)
 
 
-def ptxas_lines(report: str) -> str:
-    """The frame, spill and register lines of one build's ptxas -v, for
-    each of its two kernels (without and with the flight ring)."""
-    out = []
+def ptxas_stats(report: str) -> dict:
+    """Registers, stack frame, spill stores and loads (bytes) and static
+    shared memory of one build's two kernels (without and with the
+    flight ring), from its ptxas -v."""
+    out = {}
     for part in report.split("Compiling entry function")[1:]:
         ring = "Lb1E" in part.split("'")[1]   # the FLIGHT template argument
-        out.append(("ring: " if ring else "no ring: ") + "; ".join(
-            ln.strip() for ln in part.splitlines()
-            if "stack frame" in ln or "registers" in ln))
-    return " | ".join(out)
+        stats = {}
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("frame", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("static_smem", r"(\d+) bytes smem")):
+            m = re.search(pat, part)
+            stats[key] = int(m.group(1)) if m else 0
+        out["ring" if ring else "no_ring"] = stats
+    return out
+
+
+def ptxas_line(stats: dict) -> str:
+    return " | ".join(
+        f"{name}: {s['registers']} registers, {s['frame']} B frame, "
+        f"{s['spill_stores']}/{s['spill_loads']} B spill stores/loads"
+        for name, s in stats.items())
 
 
 def planted_fold(kernel, run, state, plant, cfg, g, dev):
@@ -501,6 +526,87 @@ def time_ms(fn, reps=20) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def near_ceiling(kernel, state, cohort, cfg, scfg, dev, head, n_head):
+    """Phase (g): one resident launch of `cfg` at 97% of the resident
+    ceiling that `kernel.hbm_budget` allows now, the fleet's wire built a
+    window at a time; then `scfg` streamed past that ceiling (a fresh
+    fleet of 110% of it, its State never whole). Each run's first
+    `n_head` groups after CHUNK ticks must equal the headline's first
+    chunk (`head`, its wire pair) at max abs err 0."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ceiling = kernel.hbm_ceiling_groups(cfg)
+    g = ceiling * 97 // 100
+    if not kernel.supported(cfg, g) or kernel.supported(cfg, ceiling + 1):
+        raise AssertionError(f"(g) {g} groups against a ceiling of {ceiling}")
+    step = kernel.window_groups(scfg)
+    rows = kernel.working_words_per_group(cfg)
+    wire, acc = torch.empty((rows, g), dtype=torch.int32, device=dev), None
+    for s0 in range(0, g, step):
+        s1 = min(s0 + step, g)
+        (w, a), _ = kernel.kinit(cfg, state.init(cfg, s1 - s0, dev,
+                                                 first_group=s0))
+        wire[:, s0:s1] = w
+        acc = a if acc is None else acc
+        del w
+    reset_counts(kernel)
+    outs, ms = chunked(kernel.kstep, cfg, (wire, acc), 1)
+    launches = {"resident": counts(kernel)["fused_chunk"]}
+    peak = torch.cuda.max_memory_allocated() - before
+    del wire, acc   # the input: room for the comparison's temporaries
+    e = words_err(outs[0][0][:, :n_head], head[0])
+    del outs
+    if e or launches["resident"] != 1:
+        raise AssertionError(f"(g) resident near the ceiling: first "
+                             f"{n_head} groups max abs err {e}")
+    print(f"[g] resident headline at {g} groups (97% of the ceiling "
+          f"{ceiling}, budget {kernel.hbm_budget()} B free now): one "
+          f"{CHUNK}-tick launch {ms[0]:.2f} ms, first {n_head} groups max "
+          f"abs err 0; peak {peak} B allocated, hbm_bytes "
+          f"{kernel.hbm_bytes(cfg, g)} B", flush=True)
+    torch.cuda.empty_cache()
+    gs = -(-ceiling * 11 // 10 // step) * step
+    if not kernel.supported(scfg, gs, state_on_host=False):
+        raise AssertionError(f"(g) {gs} streamed groups do not fit")
+    t = time.time()
+    hw = cohort.host_wire(scfg, None, device=dev, n_groups=gs)
+    t_init = time.time() - t
+    reset_counts(kernel)
+    stats = {}
+    cohort.stream_ticks(scfg, hw, 0, CHUNK, stats=stats)
+    launches["streamed"] = counts(kernel)["fused_chunk"]
+    n0 = hw.windows[0][1]
+    st_s, m_s = kernel.kfinish(scfg, (hw.blocks[0].to(dev), hw.acc), n0)
+    st_h, m_h = kernel.kfinish(cfg, head, n_head)
+    e = max_abs_err(first_groups(state, st_s, m_s, n_head),
+                    first_groups(state, st_h, m_h, n_head))
+    if e or launches["streamed"] != len(hw.windows):
+        raise AssertionError(f"(g) streamed past the ceiling: first "
+                             f"{n_head} groups max abs err {e}")
+    print(f"[g] streamed headline at {gs} groups (110% of the resident "
+          f"ceiling, {len(hw.windows)} windows of {step}, "
+          f"{kernel.host_bytes(scfg, gs, state_on_host=False)} B pinned, "
+          f"host budget {kernel.host_budget()} B): first {n_head} groups max "
+          f"abs err 0; host wire built in {t_init:.2f} s; compute "
+          f"{stats['compute_s']:.4f} s, wall {stats['wall_s']:.4f} s, overlap "
+          f"efficiency {stats['overlap_efficiency_measured']:.4f}", flush=True)
+    del hw
+    return {"resident_groups": g, "resident_ceiling": ceiling,
+            "resident_ms": ms[0], "streamed_groups": gs,
+            "streamed_wall_s": stats["wall_s"], "launches": launches}
+
+
+def first_groups(state, st, m, n):
+    """The first n groups of a State and of Metrics' per-group lanes."""
+    lanes = ("committed", "leaderless", "safety", "client_acked",
+             "client_retries")
+    return (state._map_named(st, "", lambda _, a: a[:n]),
+            tuple(getattr(m, f)[:n] for f in lanes
+                  if getattr(m, f) is not None))
+
+
 def dtypes_follow(state, cfg, st):
     """Raise unless every leaf the narrow spec names has its dtype."""
     spec, bad = state.narrow_spec(cfg), []
@@ -537,9 +643,14 @@ def main() -> int:
     reports = kernel.build(flag_sets, codec=True)
     print(f"[2] built fused_chunk.cu for {len(flag_sets)} flag sets and "
           f"wire_codec.cu in {time.time() - t:.1f} s", flush=True)
-    for flags in flag_sets:
-        print(f"[2] {kernel.flag_name(flags)}: "
-              f"{ptxas_lines(reports[flags])}", flush=True)
+    ptxas = {kernel.flag_name(f): ptxas_stats(reports[f]) for f in flag_sets}
+    for name, stats in ptxas.items():
+        print(f"[2] {name}: {ptxas_line(stats)}", flush=True)
+    plans = {}   # each run's block shape (the launcher's occupancy query)
+    for label, cfg, g, fl, _ in runs:
+        plans[label] = kernel.launch_plan(cfg, g, recorder.RING if fl else 0)
+        print(f"[2] {label}: {kernel.shared_bytes(cfg)} B shared per group; "
+              f"block shape {plans[label]}", flush=True)
     print("[2] wire_codec: " + " | ".join(
         ("unpack: " if "unpack" in part.split("'")[1] else "pack: ")
         + "; ".join(ln.strip() for ln in part.splitlines()
@@ -1029,6 +1140,13 @@ def main() -> int:
           f"{got}", flush=True)
     del st0, resident, streamed
 
+    # (g) the headline near the resident ceiling (one launch), and
+    # streamed past it: the first 100,000 groups are the headline's
+    near = near_ceiling(kernel, state, cohort, cfg, scfg, dev,
+                        main["headline"][0][0], g_head)
+    paths["near_ceiling"] = near["launches"]["resident"]
+    paths["streamed_past_ceiling"] = near["launches"]["streamed"]
+
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with
     def bound(label, cfg, g):
@@ -1041,17 +1159,23 @@ def main() -> int:
         return by_bytes, by_ops
 
     per_run = {}
-    for label, cfg, g, _, _ in runs:
+    for label, cfg, g, fl, _ in runs:
         by_bytes, by_ops = bound(label, cfg, g)
         p_ms = plain[label][1]
+        leaves = wire(label, cfg, g, fl)   # steady state: the same input
+        steady = time_ms(lambda: kernel.kstep(cfg, leaves, 0, CHUNK), 3)
+        del leaves
         per_run[label] = {
             "groups": g, "launches": launches[label],
             "ms": sum(main[label][1]) / len(main[label][1]),
+            "steady_ms": steady,
             "plain_ms": sum(p_ms) / len(p_ms) if p_ms else None,
             "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "plan": plans[label]}
         print(f"[7] {label}: per {CHUNK}-tick launch "
-              f"{per_run[label]['ms']:.2f} ms; bound by bytes "
+              f"{per_run[label]['ms']:.2f} ms (phase 5), {steady:.2f} ms "
+              f"(three more from one input); bound by bytes "
               f"{by_bytes:.4f} ms, by operations {by_ops:.4f} ms",
               flush=True)
     by_build = {}
@@ -1069,6 +1193,7 @@ def main() -> int:
            "paths": paths,
            "instantiations": [
                {"flags": name, "launches": sum(launches[lb] for lb in labels),
+                "ptxas": ptxas[name],
                 "runs": {lb: per_run[lb] for lb in labels}}
                for name, labels in by_build.items()]}
     recs = [rec] + [
@@ -1079,6 +1204,7 @@ def main() -> int:
          "bound_ms": c["bound_ms"], "bound_by": "bytes", "library_ms": None}
         for name, c in codec.items()]
     print(f"[7] memory {json.dumps(memory)}", flush=True)
+    print(f"[7] near the ceiling {json.dumps(near)}", flush=True)
     print(f"[7] total {time.time() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": recs}))

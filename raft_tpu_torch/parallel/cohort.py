@@ -97,20 +97,28 @@ def _slice(st: State, metrics: Metrics | None, flight: Flight | None,
     return st, metrics, flight
 
 
-def host_wire(cfg: RaftConfig, st: State, metrics: Metrics | None = None,
-              flight: Flight | None = None, device="cuda") -> HostWire:
+def host_wire(cfg: RaftConfig, st: State | None,
+              metrics: Metrics | None = None, flight: Flight | None = None,
+              device="cuda", n_groups: int | None = None) -> HostWire:
     """The fleet's wire at rest in host memory: `kernel.kinit` of each
     window on `device`, copied into its block. `stream_ticks` writes
-    the blocks in place."""
+    the blocks in place. With `st` None, a fresh fleet of `n_groups`
+    groups: each window's State is `state.init` of its groups on
+    `device`, so the fleet's State never exists whole."""
     device = torch.device(device)
-    g = st.alive_prev.shape[0]
+    g = st.alive_prev.shape[0] if st is not None else n_groups
     ring = 0 if flight is None else flight.tick.shape[0]
     rows = kernel.wire_words_per_group(cfg, ring)
     buf = torch.empty(rows * g, dtype=I32, pin_memory=device.type == "cuda")
     windows, blocks, acc, at = cohort_windows(cfg, g), [], None, 0
     for s0, s1 in windows:
-        (wire, a), _ = kernel.kinit(cfg, *_slice(st, metrics, flight, s0,
-                                                  s1, device))
+        if st is None:
+            part = (state_mod.init(cfg, s1 - s0, device, first_group=s0),
+                    None, None if flight is None else
+                    Flight(*(a[:, s0:s1].to(device) for a in flight)))
+        else:
+            part = _slice(st, metrics, flight, s0, s1, device)
+        (wire, a), _ = kernel.kinit(cfg, *part)
         block = buf[at:at + rows * (s1 - s0)].view(rows, s1 - s0)
         block.copy_(wire)
         blocks.append(block)
@@ -283,20 +291,27 @@ def prun_streamed(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0,
     same (State, Metrics[, Flight]), the same bits, returned on the
     device `st` lies on. Refuses a latched narrow state before paging
     and, on a card, a run `kernel.supported` does not fit under
-    `stream_groups` (one window's pipeline in the card's memory, the
-    fleet's wire in the host's)."""
+    `stream_groups`: the kernel's shape, one window's pipeline in the
+    card's free memory, and the pinned wire (with the input and output
+    States when `st` lies on the host) in the host's available memory."""
     state_mod.check_narrow_overflow(cfg, st)
     device = torch.device(device)
     g = st.alive_prev.shape[0]
     ring = 0 if flight is None else flight.tick.shape[0]
     scfg = dataclasses.replace(cfg, stream_groups=True)
-    if device.type == "cuda" and not kernel.supported(scfg, g, ring):
+    on_host = st.alive_prev.device.type == "cpu"
+    if device.type == "cuda" and not kernel.supported(
+            scfg, g, ring, state_on_host=on_host):
+        shape = ("" if kernel.shape_supported(cfg)
+                 else f"{kernel.shape_refusal(cfg)}; ")
         raise ValueError(
-            f"cohort: shape unsupported (k <= {kernel.KMAX}, log_cap <= "
-            f"{kernel.LMAX}, at most {kernel.NEM_MAX} nemesis clauses; "
-            f"cohort window {kernel.cohort_hbm_bytes(cfg, ring)} B of the "
-            f"card's memory, host wire {kernel.host_bytes(cfg, g, ring)} B "
-            f"of the host's)")
+            f"cohort: {shape}one window's pipeline needs "
+            f"{kernel.cohort_hbm_bytes(cfg, ring)} B of the card's "
+            f"{kernel.hbm_budget()} B free, the run's host copies "
+            f"(the pinned wire" + (", the input State and the output"
+                                   if on_host else "") +
+            f") {kernel.host_bytes(cfg, g, ring, on_host)} B of the host's "
+            f"{kernel.host_budget()} B available")
     hw = host_wire(cfg, st, metrics, flight, device)
     stream_ticks(cfg, hw, t0, n_ticks, chunk_ticks, stats)
     st2, m2, f2 = finish(cfg, hw, metrics, st.alive_prev.device)

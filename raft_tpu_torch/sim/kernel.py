@@ -1,5 +1,6 @@
-"""The fused-chunk kernel: many whole ticks per launch, one CUDA thread
-per Raft group (csrc/fused_chunk.cu), with the JAX package's
+"""The fused-chunk kernel: many whole ticks per launch, each group's
+state in shared memory for the whole launch and one lane per Raft node
+(csrc/fused_chunk.cu), with the JAX package's
 `sim/pkernel.py` API — `kinit` / `kstep` / `kfinish` / `prun`, and
 `kcommitted` / `kelections` / `khist` / `kreads` / `kacked` /
 `kretries` / `kflight` on the wire form — and its packed wire codec
@@ -12,9 +13,9 @@ The wire form is a pair of tensors, `(wire, acc)`:
   The kernel's working form is `[W, G]` (`_wire_rows`): bools are
   0/1, u32 digests their int32 bit pattern, and the rings and the
   mailbox come last, the region the kernel double-buffers across
-  ticks. The PreVote, TimeoutNow and session-table mailbox slots, the
-  dedup tables and the client state ride the wire only when their
-  features are on; the six flight-recorder rings (`[RING]` rows each)
+  ticks in shared memory. The PreVote, TimeoutNow and session-table
+  mailbox slots, the dedup tables and the client state ride the wire
+  only when their features are on; the six flight-recorder rings (`[RING]` rows each)
   only when `kinit` was given a Flight.
 - `acc`: int32, the `[H]` election-latency histogram, the election
   count and the longest completed streak, then, with clients on, the
@@ -52,18 +53,21 @@ membership change, scheduled reads), the scheduled clients and the
 nemesis program are compile-time flags of the tick kernel: each flag
 set is its own build of the one source (`load`), the all-off build
 carrying none of their code. The flight ring is a launch parameter (its
-ring length, 0 = off), and so are the nemesis program's clauses (at
-most `NEM_MAX`, grouped by seam on the host, `_nem_words`) and the
-histogram size. The codec is one flag-free build (`load_codec`). A build
-runs `nvcc` at first use, into a directory git ignores, and is bound
-through ctypes.
+ring length, 0 = off), and so are the histogram size and the nemesis
+program's clauses (grouped by seam on the host, `_nem_words`, and
+handed to the kernel as a device tensor, `_nem_table`). The kernel
+takes k <= `K_LIMIT` and any shape whose group, with the clause table,
+fits one block's shared memory (`shared_bytes` <= `SMEM_PER_BLOCK`);
+`launch_plan` reports the block shape the launcher picks. The codec is
+one flag-free build (`load_codec`). A build runs `nvcc` at first use,
+into a directory git ignores, and is bound through ctypes.
 
 The byte model (`hbm_bytes`, `hbm_ceiling_groups`, `host_bytes`,
 `cohort_hbm_bytes`, `streamed_ceiling_groups`, `supported`) counts the
 port's own wire and launch: a launch holds the wire at rest once under
 `alias_wire` (else an input and an output copy), plus, when a packing
-dial is on, the full-width working wire, plus the scratch copy of the
-double-buffered region.
+dial is on, the full-width working wire (the double buffer lives in
+shared memory). The budgets are the memory free now, less a margin.
 """
 
 from __future__ import annotations
@@ -102,8 +106,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The kernel's compile-time feature flags, in the order of its macros.
 FEATURES = ("prevote", "transfer", "reconfig", "reads", "clients",
             "nemesis")
-KMAX, LMAX = 8, 64   # the kernel's per-thread array bounds
-NEM_MAX = 16         # the kernel's clause table holds this many
+K_LIMIT = 30   # one warp of lanes per group (pkernel.supported's bound)
+# Shared memory one block may use on the H100 (232,448 B, the opt-in
+# maximum): one group and the clause table must fit it.
+SMEM_PER_BLOCK = 232_448
+# What the budgets leave free: the card's allocator rounds and splits
+# its segments, and the host runs the process around the run.
+HBM_MARGIN = 2 * 2 ** 30
+HOST_MARGIN = 4 * 2 ** 30
 GB = 1024            # groups per block: the unit of a cohort window
 # The synthetic rows of the packed layout.
 MB_BOOLS_PACKED = "mailbox[bools packed]"
@@ -298,11 +308,25 @@ def working_words_per_group(cfg: RaftConfig, ring: int = 0) -> int:
     return _wire_rows(cfg, ring)[1]
 
 
-def scratch_words_per_group(cfg: RaftConfig, ring: int = 0) -> int:
-    """int32 words per group of a launch's scratch copy of the
-    double-buffered region (rings and mailbox)."""
-    _, n_words, db_start = _wire_rows(cfg, ring)
-    return n_words - db_start
+def shared_words_per_group(cfg: RaftConfig) -> int:
+    """int32 words of shared memory per group (the kernel's `Args::gs`):
+    the static rows (the flight rows stay in device memory) and the
+    double-buffered rows twice, each from an even word, and the nemesis
+    participation words, padded to twice an odd number."""
+    _, n_words, db_start = _wire_rows(cfg)
+    part = -(-len(cfg.nemesis) // 32)
+
+    def even(x):
+        return x + (x & 1)
+
+    words = even(even(db_start) + 2 * even(n_words - db_start) + part)
+    return words + 2 if words % 4 == 0 else words
+
+
+def shared_bytes(cfg: RaftConfig) -> int:
+    """Shared bytes of the smallest block: one group and the clause
+    table (eight words a clause)."""
+    return 4 * (shared_words_per_group(cfg) + 8 * len(cfg.nemesis))
 
 
 def acc_words(cfg: RaftConfig, hist: int = HIST_SIZE) -> int:
@@ -320,13 +344,11 @@ def _residency(cfg: RaftConfig) -> int:
 def launch_words_per_group(cfg: RaftConfig, ring: int = 0) -> int:
     """int32 words per group on the card during one `kstep`: the wire at
     rest x `_residency`, plus the full-width working wire when a packing
-    dial is on (unpacked, the working wire is the output itself), plus
-    the scratch region."""
-    scratch = scratch_words_per_group(cfg, ring)
+    dial is on (unpacked, the working wire is the output itself)."""
     if packs(cfg):
         return (_residency(cfg) * wire_words_per_group(cfg, ring)
-                + working_words_per_group(cfg, ring) + scratch)
-    return _residency(cfg) * working_words_per_group(cfg, ring) + scratch
+                + working_words_per_group(cfg, ring))
+    return _residency(cfg) * working_words_per_group(cfg, ring)
 
 
 def hbm_bytes(cfg: RaftConfig, n_groups: int, ring: int = 0) -> int:
@@ -338,31 +360,56 @@ def hbm_bytes(cfg: RaftConfig, n_groups: int, ring: int = 0) -> int:
 
 
 def hbm_budget(device=None) -> int:
-    """The card's total memory in bytes (`torch.cuda.mem_get_info`)."""
-    return int(torch.cuda.mem_get_info(device)[1])
+    """Device bytes a run may still take: the card's free memory
+    (`torch.cuda.mem_get_info`) plus what PyTorch's allocator holds
+    unused, less `HBM_MARGIN` (2 GiB) for the allocator's rounding and
+    fragmentation."""
+    free = torch.cuda.mem_get_info(device)[0]
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return max(0, int(free + cached) - HBM_MARGIN)
 
 
 def host_budget() -> int:
-    """The host's total memory in bytes (`/proc/meminfo` MemTotal)."""
+    """Host bytes a run may still take: `/proc/meminfo` MemAvailable less
+    `HOST_MARGIN` (4 GiB) for the process around the run."""
     for line in Path("/proc/meminfo").read_text().splitlines():
-        if line.startswith("MemTotal:"):
-            return int(line.split()[1]) * 1024
-    raise RuntimeError("/proc/meminfo has no MemTotal line")
+        if line.startswith("MemAvailable:"):
+            return max(0, int(line.split()[1]) * 1024 - HOST_MARGIN)
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
 
 
 def hbm_ceiling_groups(cfg: RaftConfig, ring: int = 0,
                        hbm: int | None = None) -> int:
     """The most groups one resident `kstep` fits in `hbm` bytes (default:
-    the card's total): the exact boundary of `hbm_bytes`."""
+    `hbm_budget()`): the exact boundary of `hbm_bytes`."""
     budget = hbm_budget() if hbm is None else hbm
     spare = budget - 4 * _residency(cfg) * acc_words(cfg)
     return max(0, spare // (4 * launch_words_per_group(cfg, ring)))
 
 
-def host_bytes(cfg: RaftConfig, n_groups: int, ring: int = 0) -> int:
-    """Host bytes a streamed run pins: one copy of the fleet's wire at
-    rest."""
-    return 4 * wire_words_per_group(cfg, ring) * n_groups
+@functools.cache
+def state_bytes_per_group(cfg: RaftConfig, ring: int = 0) -> int:
+    """Bytes of one group's State (narrow under the narrow dials), its
+    per-group metric lanes and its flight rows, as `prun_streamed` takes
+    and returns them."""
+    st = state_mod.init(cfg, 1, device="cpu")   # narrow when its dials are
+    leaves = []
+    state_mod._map_named(st, "", lambda _, a: leaves.append(a))
+    lanes = 5 if cfg.clients_u32 else 3   # committed, leaderless, safety
+    return (sum(a.numel() * a.element_size() for a in leaves)
+            + 4 * lanes + 4 * len(_FLIGHT) * ring)
+
+
+def host_bytes(cfg: RaftConfig, n_groups: int, ring: int = 0,
+               state_on_host: bool = True) -> int:
+    """Host bytes of a streamed run: the pinned copy of the fleet's wire
+    at rest and, when the State lies on the host, the input State and
+    the gathered output."""
+    per = 4 * wire_words_per_group(cfg, ring)
+    if state_on_host:
+        per += 2 * state_bytes_per_group(cfg, ring)
+    return per * n_groups
 
 
 def window_groups(cfg: RaftConfig) -> int:
@@ -389,26 +436,35 @@ def cohort_hbm_bytes(cfg: RaftConfig, ring: int = 0) -> int:
 
 def streamed_ceiling_groups(cfg: RaftConfig, ring: int = 0,
                             hbm: int | None = None,
-                            host: int | None = None) -> int:
-    """The most groups a streamed run fits: one wire at rest per group in
-    `host` bytes (default: the host's total), in whole windows' blocks;
-    0 when one window's pipeline does not fit `hbm` (default: the
-    card's total)."""
+                            host: int | None = None,
+                            state_on_host: bool = True) -> int:
+    """The most groups a streamed run fits: `host_bytes` per group in
+    `host` bytes (default: `host_budget()`), in whole windows' blocks;
+    0 when one window's pipeline does not fit `hbm` (default:
+    `hbm_budget()`)."""
     hbm = hbm_budget() if hbm is None else hbm
     host = host_budget() if host is None else host
     if cohort_hbm_bytes(cfg, ring) > hbm:
         return 0
-    return host // (4 * wire_words_per_group(cfg, ring) * GB) * GB
+    return host // (host_bytes(cfg, GB, ring, state_on_host)) * GB
+
+
+def shape_supported(cfg: RaftConfig) -> bool:
+    """True iff the kernel takes the config's shape: k <= K_LIMIT and one
+    group with the clause table in one block's shared memory
+    (`shared_bytes(cfg) <= SMEM_PER_BLOCK`)."""
+    return cfg.k <= K_LIMIT and shared_bytes(cfg) <= SMEM_PER_BLOCK
 
 
 def supported(cfg: RaftConfig, n_groups: int | None = None, ring: int = 0,
-              hbm: int | None = None, host: int | None = None) -> bool:
-    """True iff the kernel takes the config (k <= KMAX, log_cap <= LMAX,
-    at most NEM_MAX nemesis clauses) and, with `n_groups`, the run fits:
-    resident, one launch in `hbm` bytes; under `stream_groups`, one
-    window's pipeline in `hbm` and the fleet's wire in `host` bytes
-    (defaults: the card's and the host's totals)."""
-    if cfg.k > KMAX or cfg.log_cap > LMAX or len(cfg.nemesis) > NEM_MAX:
+              hbm: int | None = None, host: int | None = None,
+              state_on_host: bool = True) -> bool:
+    """True iff the kernel takes the config (`shape_supported`) and, with
+    `n_groups`, the run fits: resident, one launch in `hbm` bytes; under
+    `stream_groups`, one window's pipeline in `hbm` and the run's host
+    copies (`host_bytes`) in `host` bytes (defaults: `hbm_budget()`,
+    `host_budget()`)."""
+    if not shape_supported(cfg):
         return False
     if n_groups is None:
         return True
@@ -416,8 +472,17 @@ def supported(cfg: RaftConfig, n_groups: int | None = None, ring: int = 0,
     if cfg.stream_groups:
         host = host_budget() if host is None else host
         return (cohort_hbm_bytes(cfg, ring) <= hbm
-                and host_bytes(cfg, n_groups, ring) <= host)
+                and host_bytes(cfg, n_groups, ring, state_on_host) <= host)
     return hbm_bytes(cfg, n_groups, ring) <= hbm
+
+
+def shape_refusal(cfg: RaftConfig) -> str:
+    """Why the kernel refuses a config's shape (`shape_supported`)."""
+    return (f"the kernel takes k <= {K_LIMIT} and a group whose shared "
+            f"memory, with the nemesis clause table, fits one block's "
+            f"{SMEM_PER_BLOCK} B; k={cfg.k}, log_cap={cfg.log_cap} and "
+            f"{len(cfg.nemesis)} nemesis clauses need "
+            f"{shared_bytes(cfg)} B")
 
 
 # --------------------------------------------------------------- wire form
@@ -966,6 +1031,17 @@ def _nem_words(cfg: RaftConfig) -> np.ndarray:
     return np.array(words, dtype=np.uint32)
 
 
+@functools.cache
+def _nem_table(cfg: RaftConfig, device: torch.device):
+    """The clause words of `_nem_words` on `device` (int32 bit patterns),
+    which each block copies into its shared memory; None without
+    clauses."""
+    words = _nem_words(cfg)[5:]
+    if not len(words):
+        return None
+    return torch.from_numpy(words.view(np.int32).copy()).to(device)
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -1049,6 +1125,11 @@ def load(flags: tuple) -> ctypes.CDLL:
                                            ctypes.c_int, ctypes.c_void_p,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    plan = lib.fused_chunk_plan
+    plan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p]
+    plan.restype = ctypes.c_int
     return lib
 
 
@@ -1065,6 +1146,37 @@ def load_codec() -> ctypes.CDLL:
     lib.wire_unpack_launch.restype = ctypes.c_int
     lib.wire_pack_launch.restype = ctypes.c_int
     return lib
+
+
+def _launch_args(cfg: RaftConfig, g: int, hist: int, ring: int, t0: int,
+                 n_ticks: int):
+    """The host arrays the launcher parses: offsets, params, nemesis."""
+    offs = np.array(_wire_rows(cfg, ring)[0], dtype=np.int32)
+    return offs, _params(cfg, g, hist, ring, t0, n_ticks), _nem_words(cfg)
+
+
+_RC = {-1: "bad argument", -2: "the config's feature flags are not the "
+       "build's", -3: "one group does not fit a block's shared memory"}
+
+
+def launch_plan(cfg: RaftConfig, g: int, ring: int = 0) -> dict:
+    """The block shape a launch over `g` groups takes on the current card
+    (the launcher's occupancy query): lanes per group, groups and threads
+    per block, shared bytes per block, blocks and groups per SM."""
+    if not shape_supported(cfg):
+        raise ValueError(shape_refusal(cfg))
+    hist = HIST_SIZE if cfg.wire_hist else 0
+    offs, params, nem = _launch_args(cfg, g, hist, ring, 0, 0)
+    out = np.zeros(6, dtype=np.int32)
+    rc = load(features(cfg)).fused_chunk_plan(
+        offs.ctypes.data, len(offs), params.ctypes.data, len(params),
+        nem.ctypes.data, len(nem), out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"fused_chunk plan failed: "
+                           f"{_RC.get(rc, f'error {rc}')}")
+    return dict(zip(("lanes_per_group", "groups_per_block",
+                     "threads_per_block", "shared_bytes_per_block",
+                     "blocks_per_sm", "groups_per_sm"), out.tolist()))
 
 
 def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
@@ -1084,16 +1196,12 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
         return out, acc_out
     if wire.device.type != "cuda":
         raise ValueError(f"no fused-chunk kernel for {wire.device}")
-    if not supported(cfg):
-        raise ValueError(f"the kernel takes k <= {KMAX}, log_cap <= {LMAX} "
-                         f"and at most {NEM_MAX} nemesis clauses, not "
-                         f"k={cfg.k}, log_cap={cfg.log_cap}, "
-                         f"{len(cfg.nemesis)} clauses")
+    if not shape_supported(cfg):
+        raise ValueError(shape_refusal(cfg))
     if n_ticks < 0 or t0 < 0 or t0 + n_ticks >= 2 ** 31:
         raise ValueError("ticks must lie in [0, 2**31)")
     lib = load(features(cfg))
     g, ring = wire.shape[1], _ring_of(cfg, wire)
-    offsets, n_words, db_start = _wire_rows(cfg, ring)
     acc_out = acc if cfg.alias_wire else acc.clone()
     if packs(cfg):
         # The working wire the tick kernel runs on in place, and the
@@ -1104,19 +1212,18 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
         work, wire_in = wire, None
     else:
         work, wire_in = torch.empty_like(wire), wire
-    scratch = torch.empty((n_words - db_start, g), dtype=I32,
-                          device=wire.device)
-    offs = np.array(offsets, dtype=np.int32)
-    params = _params(cfg, g, _hist_size(cfg, acc), ring, int(t0),
-                     int(n_ticks))
-    nem = _nem_words(cfg)
+    offs, params, nem = _launch_args(cfg, g, _hist_size(cfg, acc), ring,
+                                     int(t0), int(n_ticks))
+    table = _nem_table(cfg, wire.device)
     stream = torch.cuda.current_stream(wire.device).cuda_stream
     rc = lib.fused_chunk_launch(
         None if wire_in is None else wire_in.data_ptr(), work.data_ptr(),
-        scratch.data_ptr(), acc_out.data_ptr(), offs.ctypes.data, len(offs),
-        params.ctypes.data, len(params), nem.ctypes.data, len(nem), stream)
+        acc_out.data_ptr(), None if table is None else table.data_ptr(),
+        offs.ctypes.data, len(offs), params.ctypes.data, len(params),
+        nem.ctypes.data, len(nem), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_chunk launch failed: error {rc}")
+        raise RuntimeError(f"fused_chunk launch failed: "
+                           f"{_RC.get(rc, f'error {rc}')}")
     kstep.launches += 1
     if packs(cfg):
         return pack_wire(cfg, work, flags_from=wire, out=out), acc_out

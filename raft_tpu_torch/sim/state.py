@@ -206,14 +206,17 @@ def empty_mailbox(cfg: RaftConfig, lead_shape: tuple, device) -> Mailbox:
 
 
 def init(cfg: RaftConfig, n_groups: int | None = None,
-         device="cuda") -> State:
+         device="cuda", first_group: int = 0) -> State:
     """Fresh state: every replica a follower at term 0 with one timer
-    draw taken (deadline = draw 0, rng_draws = 1)."""
+    draw taken (deadline = draw 0, rng_draws = 1). `first_group` starts
+    the group ids there: groups [first_group, first_group + n_groups) of
+    a larger fleet, built a window at a time."""
     g = cfg.n_groups if n_groups is None else n_groups
     k, cap = cfg.k, cfg.log_cap
     device = torch.device(device)
 
-    g_idx = torch.arange(g, dtype=I32, device=device)[:, None]
+    g_idx = torch.arange(first_group, first_group + g, dtype=I32,
+                         device=device)[:, None]
     i_idx = torch.arange(k, dtype=I32, device=device)[None, :]
     deadline = trng.election_deadline(cfg.seed, g_idx, i_idx, 0,
                                       cfg.election_min, cfg.election_range)
@@ -251,7 +254,7 @@ def init(cfg: RaftConfig, n_groups: int | None = None,
     )
     st = State(nodes=nodes, mailbox=empty_mailbox(cfg, (g, k, k), device),
                alive_prev=torch.ones((g, k), dtype=BOOL, device=device),
-               group_id=torch.arange(g, dtype=I32, device=device),
+               group_id=g_idx[:, 0].clone(),
                clients=(clients_init(cfg, g, device) if cfg.clients_u32
                         else None))
     # The resident form is the narrow one when a narrow dial is on; the

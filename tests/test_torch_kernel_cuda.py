@@ -7,8 +7,9 @@ path (PreVote, membership change, reads, alone and together), on
 scheduled-client universes (retrying sessions, the admission cap, with
 PreVote and membership change), on the flight ring, on nemesis programs
 (the gray mix, the storage-pressure mix under admission-capped clients,
-one clause of every kind at k=3 and k=5, a program at the kernel's clause
-bound), and on states with planted safety violations (where the kernel's
+one clause of every kind at k=3 and k=5, a 24-clause program), on shapes
+past the old per-thread bounds (k=9, log_cap=128), and on states with
+planted safety violations (where the kernel's
 own safety fold must clear exactly the planted groups). The packed wire
 codec kernels against plain `pack`/`unpack` on chip_smoke.py's four
 packed universes at 1,000 groups, the histogram-free launch, the
@@ -22,6 +23,7 @@ suite's JAX conftest):
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 
 import pytest
@@ -76,8 +78,8 @@ def all_kinds(ticks: int) -> tuple:
 
 
 def bounded(n_clauses: int) -> tuple:
-    """A program of n_clauses clauses, the all-kinds ones repeated with
-    shifted spans (fresh cids)."""
+    """A program of n_clauses clauses (at most 64), the all-kinds ones
+    repeated with shifted spans (fresh cids)."""
     clauses = [c._replace(t0=c.t0 + r, t1=c.t1 + r, cid=-1)
                for r in range(0, 64, 8) for c in all_kinds(90)]
     return nemesis.program(*clauses[:n_clauses])
@@ -130,10 +132,13 @@ def assert_same(cfg, g, leaves, plain):
     dict(n_groups=3000, **BENCH_CLIENTS),
     dict(n_groups=300, **dict(CLIENTS_64, prevote=True, reconfig_prob=0.8,
                               reconfig_epoch=16)),
+    # shapes past the kernel's old per-thread bounds (k <= 8, L <= 64)
+    dict(n_groups=1000, k=9, **CONFIG4),
+    dict(n_groups=1000, log_cap=128, compact_every=64, **CONFIG4),
 ], ids=["fault_mix", "config4", "election_rounds", "reads", "feature_mix",
         "transfer_reconfig", "prevote", "reconfig", "reads_reconfig",
         "prevote_reconfig", "clients", "clients_cap", "bench_clients",
-        "clients_prevote_reconfig"])
+        "clients_prevote_reconfig", "k9", "L128"])
 def test_kernel_matches_plain_on_card(cuda, kw):
     cfg = RaftConfig(**kw)
     leaves, g = kernel.kinit(cfg, state.init(cfg, device=cuda))
@@ -219,9 +224,9 @@ def test_kernel_safety_fold_on_planted_violations(cuda, kw):
          client_queue_cap=8, nemesis=nemesis.pressure_mix(73)),
     dict(n_groups=300, **NEM_BASE, nemesis=all_kinds(73)),
     dict(n_groups=300, seed=9, nemesis=all_kinds(73)),
-    dict(n_groups=300, **NEM_BASE, nemesis=bounded(kernel.NEM_MAX)),
+    dict(n_groups=300, **NEM_BASE, nemesis=bounded(24)),
 ], ids=["gray_mix", "pressure", "all_kinds_k3", "all_kinds_k5",
-        "clause_bound"])
+        "clauses_24"])
 def test_kernel_nemesis_matches_plain_on_card(cuda, kw):
     """State, Metrics and Flight at every chunk boundary."""
     cfg = RaftConfig(**kw)
@@ -244,12 +249,60 @@ def test_kernel_nemesis_matches_plain_on_card(cuda, kw):
         assert int(clients.shed.sum()) > 0, "no arrival shed"
 
 
+def past_the_clause_bound(cfg: RaftConfig) -> tuple:
+    """A program one clause longer than the longest whose clause table
+    (and participation words) fit one block's shared memory beside one
+    group of `cfg`."""
+    def prog(n):
+        return nemesis.program(*(nemesis.slow_follower(t, t + 1)
+                                 for t in range(n)))
+
+    room = kernel.SMEM_PER_BLOCK - 4 * kernel.shared_words_per_group(cfg)
+    n = room // 33   # under the bound: 8 words a clause and its bit
+    while kernel.shared_bytes(dataclasses.replace(cfg, nemesis=prog(n))) \
+            <= kernel.SMEM_PER_BLOCK:
+        n += 1
+    return prog(n)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_a_program_past_its_clause_bound(cuda):
-    cfg = RaftConfig(**NEM_BASE, nemesis=bounded(kernel.NEM_MAX + 1))
-    leaves, _ = kernel.kinit(cfg, state.init(cfg, 8, device=cuda))
-    with pytest.raises(ValueError, match="nemesis clauses"):
-        kernel.kstep(cfg, leaves, 0, 4)
+    """A program whose clause table does not fit one block's shared memory
+    beside one group raises ValueError naming the bound, never runs on
+    the plain tick; one clause fewer launches."""
+    cfg = RaftConfig(**NEM_BASE)
+    big = dataclasses.replace(cfg, nemesis=past_the_clause_bound(cfg))
+    assert kernel.shared_bytes(big) > kernel.SMEM_PER_BLOCK
+    leaves, _ = kernel.kinit(big, state.init(big, 8, device=cuda))
+    before = kernel.kstep.launches
+    with pytest.raises(ValueError, match="232448 B"):
+        kernel.kstep(big, leaves, 0, 4)
+    assert kernel.kstep.launches == before
+    fits = dataclasses.replace(cfg, nemesis=big.nemesis[:-1])
+    assert kernel.shared_bytes(fits) <= kernel.SMEM_PER_BLOCK
+    leaves, _ = kernel.kinit(fits, state.init(fits, 8, device=cuda))
+    out = kernel.kstep(fits, leaves, 0, 4)
+    plain = kernel.kstep_plain(fits, leaves, 0, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+
+
+@pytest.mark.cuda
+def test_launch_plan_fills_the_sm(cuda):
+    """The launcher's block shape: a tile of the next power of two >= k
+    lanes per group, and groups per block and per SM that fit the card's
+    shared memory."""
+    for kw, lanes in ((dict(seed=42), 8),
+                      (dict(k=3, log_cap=8, compact_every=4), 4),
+                      (dict(k=9), 16),
+                      (dict(k=30, log_cap=8, compact_every=4), 32)):
+        cfg = RaftConfig(**kw)
+        plan = kernel.launch_plan(cfg, 100_000)
+        assert plan["lanes_per_group"] == lanes
+        assert plan["threads_per_block"] == lanes * plan["groups_per_block"]
+        assert plan["shared_bytes_per_block"] <= kernel.SMEM_PER_BLOCK
+        assert plan["groups_per_sm"] == \
+            plan["groups_per_block"] * plan["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda

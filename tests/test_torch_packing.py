@@ -102,7 +102,8 @@ def test_packed_saving_is_the_reference_pin(clients):
 def test_byte_model_words_are_the_real_rows(universe, knobs):
     """The model's words at rest and accumulator words equal kinit's real
     tensors, with and without the flight ring, and a launch's words are
-    the at-rest, working and scratch forms it holds."""
+    the at-rest and working forms it holds (its double buffer lives in
+    shared memory)."""
     cfg = port(UNIVERSES[universe], **knobs)
     st0 = state.init(cfg, device="cpu")
     for flight in (None, recorder.flight_init(64, device="cpu")):
@@ -115,14 +116,14 @@ def test_byte_model_words_are_the_real_rows(universe, knobs):
         rest = kernel.wire_words_per_group(cfg, ring)
         held = (2 - cfg.alias_wire) * rest + (
             work.shape[0] if kernel.packs(cfg) else 0)
-        assert kernel.launch_words_per_group(cfg, ring) == held + \
-            kernel.scratch_words_per_group(cfg, ring)
+        assert kernel.launch_words_per_group(cfg, ring) == held
 
 
 def test_launch_model_at_the_headline():
-    """The headline's launch: 13,312 B/group unpacked (wire in and out
-    plus scratch), 15,684 packed without aliasing, 12,140 packed and
-    aliased; the resident ceiling is the exact boundary of hbm_bytes."""
+    """The headline's launch: 9,432 B/group unpacked (wire in and out),
+    11,804 packed without aliasing, 8,260 packed and aliased (the double
+    buffer lives in shared memory); the resident ceiling is the exact
+    boundary of hbm_bytes."""
     h = RaftConfig(seed=42)
     per_group = {}
     for name, knobs in (("off", {}), ("packed", PACKED),
@@ -135,11 +136,11 @@ def test_launch_model_at_the_headline():
             < kernel.hbm_bytes(cfg, top + 1)
         assert kernel.supported(cfg, top, hbm=budget)
         assert not kernel.supported(cfg, top + 1, hbm=budget)
-    assert per_group == {"off": 13_312, "packed": 15_684,
-                         "aliased": 12_140}
+    assert per_group == {"off": 9_432, "packed": 11_804,
+                         "aliased": 8_260}
     nohist = RaftConfig(seed=42, wire_hist=False, alias_wire=True, **PACKED)
     assert kernel.acc_words(nohist) == 2
-    assert kernel.hbm_bytes(nohist, 1000) == 4 * (12_140 // 4 * 1000 + 2)
+    assert kernel.hbm_bytes(nohist, 1000) == 4 * (8_260 // 4 * 1000 + 2)
 
 
 def test_codec_round_trips_exactly_with_every_feature():

@@ -18,7 +18,7 @@ from raft_tpu_torch.sim import kernel, run, state
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -135,13 +135,18 @@ def test_kstep_counts_no_launch_on_cpu():
 
 def test_nemesis_table_follows_the_kernel():
     """`_nem_words` groups the clauses in the kernel's `NemSeam` order,
-    behind the per-seam counts, and both sides bound the program alike."""
+    behind the per-seam counts; the clause words go to the kernel as a
+    device tensor (`_nem_table`) that each block copies into its shared
+    memory, bounded only by it (`shared_bytes`)."""
+    import torch
     from raft_tpu_torch import nemesis as n
     from raft_tpu_torch.config import RaftConfig
     text = kernel.SOURCE.read_text()
     assert "enum NemSeam { NS_LINK, NS_CRASH, NS_SKEW, NS_DISK, " \
            "NS_COMPACT, N_SEAMS };" in text
-    assert f"constexpr int NEM_MAX = {kernel.NEM_MAX};" in text
+    assert "enum NemWord { NK, NT0, NT1, NGROUP, NP, NA, NB, NCID, " \
+           "NEM_WORDS };" in text
+    assert "nem[w] = nem_tab[w];" in text and "NEM_MAX" not in text
     prog = n.program(n.compaction_pressure(0, 9), n.clock_skew(0, 9, -3),
                      n.wan_delay(0, 2 ** 40), n.crash_storm(0, 9),
                      n.disk_full_follower(0, 9), n.slow_follower(0, 9))
@@ -152,3 +157,11 @@ def test_nemesis_table_follows_the_kernel():
     assert kinds == [3, 1, 5, 4, 7, 8]
     assert words[5 + 2] == 2 ** 31 - 1   # the WAN clause's t1, clamped
     assert words[5 + 8 * 3 + 5] == 2 ** 32 - 3   # the skew's -3, as u32
+    cfg = RaftConfig(nemesis=prog)
+    table = kernel._nem_table(cfg, torch.device("cpu"))
+    assert table.dtype == torch.int32 and table.shape == (6 * 8,)
+    assert (table.numpy().view("uint32") == words[5:]).all()
+    assert kernel._nem_table(RaftConfig(), torch.device("cpu")) is None
+    # the table's 6 clauses, a participation word and its padding
+    assert kernel.shared_bytes(cfg) == \
+        kernel.shared_bytes(RaftConfig()) + 8 * 4 * 6 + 4 * 4

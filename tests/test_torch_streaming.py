@@ -124,21 +124,21 @@ def test_host_store_is_window_major():
         assert block.storage_offset() == at
         assert torch.equal(block, wire[:, s0:s1])
         at += block.numel()
-    assert 4 * at == kernel.host_bytes(cfg, 2500)
+    assert 4 * at == kernel.host_bytes(cfg, 2500, state_on_host=False)
 
 
 def test_streamed_budgets_and_refusals():
-    """The streamed ceiling is host-bound in whole blocks and 0 when one
-    window's pipeline does not fit the card; `supported` holds at its
-    boundaries; more than one device raises NotImplementedError."""
+    """The streamed ceiling is host-bound in whole blocks (the host copies
+    of `host_bytes`) and 0 when one window's pipeline does not fit the
+    card; `supported` holds at its boundaries; more than one device
+    raises NotImplementedError."""
     cfg = RaftConfig(seed=42, stream_groups=True, cohort_blocks=98,
                      **PACKED)
     assert kernel.window_groups(cfg) == 100_352
     per = kernel.wire_words_per_group(cfg)
     win = kernel.window_groups(cfg)
     assert kernel.cohort_hbm_bytes(cfg) == \
-        4 * win * (4 * per + kernel.working_words_per_group(cfg)
-                   + kernel.scratch_words_per_group(cfg)) \
+        4 * win * (4 * per + kernel.working_words_per_group(cfg)) \
         + 8 * kernel.acc_words(cfg)
     hbm, host = 80 * 10 ** 9, 96 * 2 ** 30
     top = kernel.streamed_ceiling_groups(cfg, hbm=hbm, host=host)
@@ -147,8 +147,29 @@ def test_streamed_budgets_and_refusals():
         < kernel.host_bytes(cfg, top + kernel.GB)
     assert kernel.supported(cfg, top, hbm=hbm, host=host)
     assert not kernel.supported(cfg, top + kernel.GB, hbm=hbm, host=host)
+    # a State on the card leaves the host only the pinned wire
+    wire_top = kernel.streamed_ceiling_groups(cfg, hbm=hbm, host=host,
+                                              state_on_host=False)
+    assert wire_top == host // (4 * per * kernel.GB) * kernel.GB > top
+    assert kernel.supported(cfg, wire_top, hbm=hbm, host=host,
+                            state_on_host=False)
     small = kernel.cohort_hbm_bytes(cfg) - 1
     assert kernel.streamed_ceiling_groups(cfg, hbm=small, host=host) == 0
     assert not kernel.supported(cfg, 1000, hbm=small, host=host)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cohort.cohort_windows(cfg, 1000, n_devices=2)
+
+
+def test_fresh_host_wire_is_the_init_of_the_fleet():
+    """A fresh fleet built a window at a time (`host_wire` without a
+    State, `state.init(first_group=...)` per window) holds the same words
+    as the wire of the whole fleet's `state.init`."""
+    cfg = dataclasses.replace(FAULT, n_groups=2500, stream_groups=True,
+                              cohort_blocks=1, **PACKED)
+    whole = cohort.host_wire(cfg, state.init(cfg, device="cpu"),
+                             device="cpu")
+    fresh = cohort.host_wire(cfg, None, device="cpu", n_groups=2500)
+    assert fresh.windows == whole.windows
+    for a, b in zip(fresh.blocks, whole.blocks):
+        assert torch.equal(a, b)
+    assert torch.equal(fresh.acc, whole.acc)
