@@ -86,6 +86,17 @@ launch counts set to 0 just before it and read just after:
    fleet's wire built a window at a time, then a fresh headline fleet of
    110% of that ceiling streamed as in (f) with its State never whole;
    in each, the first 100,000 groups equal the headline's first chunk;
+(h) search and triage: a nemesis hunt (scripts/torch_nemesis_search.py's
+   base universe, 1,024 groups x 64 ticks, budget 8) equal to the same
+   hunt on the CPU; NEMESIS_repro_example.json replayed to its tick and
+   leaf; `bisect_divergence` of the plain tick against the kernel
+   (launches of 16 ticks and of one) over the hunt's best program and
+   over bench_nemesis' knobs at 50,000 groups for 200 ticks, with no
+   divergence; a term bump injected into a kernel engine at 50,000
+   groups bisected to its tick and `.nodes.term`; the headline 200 ticks
+   on the kernel, through `checkpoint.save`/`load`, and 200 more, equal
+   to phase 5 at tick 400; `oracle_divergence` of the all-kinds program
+   (8 groups, 4 on the CPU oracle, 120 ticks) with none;
 7. a `kernels` JSON line: launches, times and bound of the fused chunk
    and the two codec kernels, and the same for each flag set's build by
    run (with each run's steady-state time: three launches more from its
@@ -103,9 +114,12 @@ import dataclasses
 import itertools
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -127,6 +141,15 @@ PACK_WIRE = dict(pack_bools=True, pack_ring=True, alias_wire=True)
 NARROW = dict(narrow_scalars=True, narrow_ring=True, narrow_mailbox=True,
               narrow_clients=True, donate_scan=True)
 STREAM_GROUPS, STREAM_BLOCKS = 1_000_000, 98
+# Phase (h): the hunt's shape (scripts/torch_nemesis_search.py's base
+# universe: groups, ticks, budget), the triage runs' groups and ticks at
+# the published widths, the term bump (tick, group, node) and the oracle
+# run (groups, oracle groups, ticks: tests/test_nemesis.py's)
+HUNT = (1024, 64, 8)
+TRIAGE_GROUPS, TRIAGE_TICKS = 50_000, 200
+BUMP = (37, 12_345, 1)
+ORACLE = (8, 4, 120)
+ROOT = Path(__file__).resolve().parent
 
 
 def config4(n_groups):
@@ -614,6 +637,151 @@ def dtypes_follow(state, cfg, st):
                      if n in spec and a.dtype != spec[n] else None)
     if bad or not spec:
         raise AssertionError(f"narrow dtypes off the spec: {bad}")
+
+
+def search_and_triage(dev, head_400, n_head, hunt=HUNT,
+                      triage=(TRIAGE_GROUPS, TRIAGE_TICKS), bump=BUMP,
+                      oracle=ORACLE):
+    """Phase (h): the nemesis search and divergence triage on `dev`, each
+    step raising on failure, its kernel launches counted by build:
+
+    - a hunt with torch_nemesis_search.py's base universe, its corpus
+      hashes, coverage keys and best score equal to the same hunt on the
+      CPU;
+    - NEMESIS_repro_example.json replayed: the same tick and leaf;
+    - `bisect_divergence` of the plain tick against the kernel over the
+      hunt's best program and over bench_nemesis' knobs at the published
+      widths: no divergence;
+    - a term bump injected into a kernel engine, bisected to its tick
+      and `.nodes.term`;
+    - the headline (`n_head` groups) 200 ticks on the kernel, through
+      `checkpoint.save` and `load`, and 200 more: equal to `head_400`,
+      phase 5's wire pair at the 400-tick boundary;
+    - `oracle_divergence` of the all-kinds program: none.
+
+    Returns {step: {build: launches}} and the steps' seconds."""
+    import importlib.util
+
+    from raft_tpu_torch.config import RaftConfig
+    from raft_tpu_torch.nemesis import program_hash
+    from raft_tpu_torch.nemesis import search as nsearch
+    from raft_tpu_torch.obs.triage import bisect_divergence, oracle_divergence
+    from raft_tpu_torch.sim import checkpoint, kernel, state
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_nemesis_search", ROOT / "scripts" / "torch_nemesis_search.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    launches, secs = {}, {}
+
+    def step(name, cfg, fn):
+        kernel.kstep.launches = 0
+        t = time.time()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.time() - t
+        launches[name] = {kernel.flag_name(kernel.features(cfg)):
+                          kernel.kstep.launches}
+        return out
+
+    g, ticks, budget = hunt
+    base = script.base_config(0)
+    res = step("hunt", base, lambda: nsearch.search(base, g, ticks, budget,
+                                                    device=dev))
+    ref = nsearch.search(base, g, ticks, budget, device="cpu")
+    hashes = [[program_hash(p) for p in r["corpus"]] for r in (res, ref)]
+    if hashes[0] != hashes[1] or res["coverage"] != ref["coverage"] \
+            or res["best_score"] != ref["best_score"] \
+            or res["violations"] != ref["violations"]:
+        raise AssertionError(f"(h) the hunt on {dev} differs from the CPU's: "
+                             f"{res['coverage']} vs {ref['coverage']}")
+    print(f"[h] hunt {g} groups x {ticks} ticks, budget {budget}: corpus "
+          f"{hashes[0]}, "
+          f"{len(res['coverage'])} coverage keys, best score "
+          f"{res['best_score']:.2f}, {len(res['violations'])} violations; "
+          f"equal to the same hunt on the CPU; {secs['hunt']:.1f} s on the "
+          f"card", flush=True)
+
+    cfg, art = nsearch.load_reproducer(str(ROOT / "NEMESIS_repro_example.json"))
+    inj = art["inject"]
+    pair = nsearch.term_corruption_pair(inj["tick"], inj["group"],
+                                        inj["node"], inj["bump"])
+    rep = step("replay", cfg, lambda: nsearch.verify_reproducer(
+        art, nsearch.divergence_repro(cfg, pair, art["n_groups"],
+                                      art["n_ticks"], device=dev)))
+    if rep["leaf_report"] != art["violation"]["leaf_report"]:
+        raise AssertionError(f"(h) replay: {rep['leaf_report']}")
+    print(f"[h] NEMESIS_repro_example.json replayed: tick {rep['tick']}, "
+          f"{rep['leaf_report']}", flush=True)
+
+    best = dataclasses.replace(base, nemesis=res["best"])
+    rep = step("bisect_best", best, lambda: nsearch.divergence_repro(
+        base, nsearch.plain_vs_kernel, g, ticks, device=dev)(res["best"]))
+    if rep is not None:
+        raise AssertionError(f"(h) kernel != plain under the hunt's best "
+                             f"program: {rep}")
+    g_tri, n_tri = triage
+    nem = bench_nemesis(g_tri)
+    st0 = state.init(nem, g_tri, device=dev)
+    rep = step("bisect_nemesis", nem, lambda: bisect_divergence(
+        *nsearch.plain_vs_kernel(nem), st0, n_tri))
+    if rep is not None:
+        raise AssertionError(f"(h) kernel != plain under bench_nemesis: {rep}")
+    print(f"[h] bisect_divergence(plain, kernel): none over the hunt's best "
+          f"program ({g} groups x {ticks} ticks, {secs['bisect_best']:.1f} "
+          f"s) nor bench_nemesis' knobs ({g_tri} groups x {n_tri} ticks, "
+          f"{secs['bisect_nemesis']:.1f} s)", flush=True)
+
+    t_b, g_b, k_b = bump
+    clean, corrupt = nsearch.term_corruption_pair(
+        t_b, g_b, k_b, engine=nsearch.kernel_engine)(nem)
+    rep = step("bump", nem, lambda: bisect_divergence(clean, corrupt, st0,
+                                                      2 * t_b))
+    if rep is None or rep["tick"] != t_b or nsearch._leaf_of(rep) \
+            != ".nodes.term" or f"first at [{g_b},{k_b}]" \
+            not in rep["leaf_report"]:
+        raise AssertionError(f"(h) term bump at tick {t_b}: {rep}")
+    print(f"[h] term bump in a kernel engine at tick {t_b}: bisected to tick "
+          f"{rep['tick']} in chunk {rep['boundary']}, {rep['leaf_report']}",
+          flush=True)
+    del st0
+
+    head = RaftConfig(seed=42)
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT)
+    try:
+        def hop():
+            leaves = kernel.kinit(head, state.init(head, n_head, device=dev))[0]
+            st, m = kernel.kfinish(head, kernel.kstep(head, leaves, 0, CHUNK),
+                                   n_head)
+            path = Path(tmp) / "headline.npz"
+            checkpoint.save(path, st, CHUNK, m, cfg=head)
+            del st, m, leaves
+            st, t, m = checkpoint.load(path, cfg=head, device=dev)
+            leaves = kernel.kinit(head, st, m)[0]
+            return kernel.kfinish(head, kernel.kstep(head, leaves, t, CHUNK),
+                                  n_head, m), path.stat().st_size
+        resumed, size = step("checkpoint", head, hop)
+    finally:
+        shutil.rmtree(tmp)
+    e = max_abs_err(resumed, kernel.kfinish(head, head_400, n_head))
+    if e:
+        raise AssertionError(f"(h) checkpoint hop: max abs err {e}")
+    print(f"[h] headline {n_head} groups: {CHUNK} ticks, checkpoint.save "
+          f"({size} B), load, {CHUNK} more: max abs err 0 against phase 5 "
+          f"at tick {2 * CHUNK}; {secs['checkpoint']:.1f} s", flush=True)
+    del resumed
+
+    g_o, g_oo, n_o = oracle
+    kinds = dataclasses.replace(script.base_config(9), nemesis=all_kinds(n_o))
+    rep = step("oracle", kinds, lambda: oracle_divergence(
+        kinds, g_o, n_o, oracle_groups=g_oo, device=dev))
+    if rep is not None:
+        raise AssertionError(f"(h) oracle divergence: {rep}")
+    print(f"[h] oracle_divergence, all-kinds program, {g_o} groups ({g_oo} "
+          f"on the oracle) x {n_o} ticks: none; {secs['oracle']:.1f} s",
+          flush=True)
+    return launches, secs
 
 
 def main() -> int:
@@ -1146,6 +1314,23 @@ def main() -> int:
                         main["headline"][0][0], g_head)
     paths["near_ceiling"] = near["launches"]["resident"]
     paths["streamed_past_ceiling"] = near["launches"]["streamed"]
+
+    # (h) search and triage on the card, each step's launches counted
+    t = time.time()
+    h_launches, h_secs = search_and_triage(dev, main["headline"][0][1],
+                                           g_head)
+    want = {"bisect_best": -(-HUNT[1] // 16),
+            "bisect_nemesis": -(-TRIAGE_TICKS // 16), "checkpoint": 2}
+    got = {k: sum(v.values()) for k, v in h_launches.items()}
+    if any(got[k] != n for k, n in want.items()) or got["bump"] <= 0:
+        raise AssertionError(f"(h) launches {h_launches}")
+    per_build = collections.Counter()
+    for v in h_launches.values():
+        per_build.update(v)
+    paths["search_triage"] = sum(per_build.values())
+    print(f"[h] search and triage: {time.time() - t:.1f} s (steps "
+          f"{ {k: round(v, 1) for k, v in h_secs.items()} }); kernel "
+          f"launches by step {got}, by build {dict(per_build)}", flush=True)
 
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with

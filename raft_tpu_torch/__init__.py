@@ -12,6 +12,10 @@ Metrics can be held bit-identical to the reference at the same
   codec kernels (``csrc/wire_codec.cu``) and the byte model.
 - ``parallel.cohort``: the fleet's wire in host memory, streamed through
   one card (``prun_streamed``).
+- ``sim.checkpoint``: save and load, in the JAX package's file format.
+- ``core``: the CPU oracle; ``obs.triage``: divergence bisection and the
+  oracle differential; ``nemesis.search``: the adversarial search,
+  shrinker and reproducers (``scripts/torch_nemesis_search.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

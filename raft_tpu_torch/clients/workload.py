@@ -1,6 +1,6 @@
 """Deterministic open-loop client workload, on torch tensors: the JAX
 package's `clients/workload.py` (its pure-Python oracle mirror,
-`HostClients`, is not ported).
+`HostClients`, drives the CPU oracle `core.Cluster`).
 
 Per (group, sid) slot:
 - arrival: a new op arrives with probability `cfg.client_rate` each
@@ -29,7 +29,7 @@ import torch
 
 from raft_tpu_torch import config as _c
 from raft_tpu_torch.clients.state import ClientState
-from raft_tpu_torch.utils import trng
+from raft_tpu_torch.utils import rng, trng
 
 I32 = torch.int32
 W = torch.where
@@ -92,6 +92,75 @@ def submit_payloads(cfg, cs: ClientState, g, sid):
     payload = (_c.SESSION_FLAG | (sid << _c.SESSION_SID_SHIFT)
                | (cs.done << _c.SESSION_SEQ_SHIFT) | val)
     return cs.submit, payload.to(I32)
+
+
+class HostClients:
+    """Pure-Python mirror of `client_update`/`submit_payloads` for ONE
+    group, driving the CPU oracle `Cluster` (core/cluster.py wires it
+    in when cfg.client_rate > 0). Every branch matches the tensor
+    transition term for term."""
+
+    def __init__(self, cfg, group: int):
+        self.cfg = cfg
+        self.g = group
+        s = cfg.client_slots
+        self.done = [0] * s
+        self.backlog = [0] * s
+        self.inflight = [0] * s
+        self.t_start = [0] * s
+        self.t_sub = [0] * s
+        self.submit = [0] * s
+        self.retries = [0] * s
+        self.last_lat = [-1] * s
+        self.shed = [0] * s      # admission rejects (cap > 0 only)
+        # Host-side SLO tally (the oracle's analogue of the client
+        # metric lanes): completed-op ack latencies, in ticks.
+        self.latencies: list[int] = []
+
+    def pending_cmds(self) -> list[int]:
+        """The payloads phase C appends THIS tick, in slot order — the
+        pulses raised by the previous tick's `observe`."""
+        out = []
+        for s in range(self.cfg.client_slots):
+            if self.submit[s]:
+                out.append(_c.session_payload(
+                    s, self.done[s],
+                    rng.client_val(self.cfg.seed, self.g, s, self.done[s])))
+        return out
+
+    def observe(self, tmax: list[int], t: int) -> None:
+        """`client_update` on host ints: fold the post-tick table
+        witness `tmax` (max applied seq per sid over the group's
+        nodes) and raise next tick's pulses."""
+        cfg = self.cfg
+        for s in range(cfg.client_slots):
+            acked = bool(self.inflight[s]) and tmax[s] >= self.done[s]
+            self.last_lat[s] = t - self.t_start[s] if acked else -1
+            if acked:
+                self.latencies.append(t - self.t_start[s])
+                self.done[s] += 1
+                self.inflight[s] = 0
+            room = (self.done[s] + self.backlog[s] + self.inflight[s]
+                    <= _c.SESSION_SEQ_MASK)
+            if room and rng.client_arrives(cfg.seed, self.g, s, t,
+                                           cfg.clients_u32):
+                if (cfg.client_queue_cap > 0
+                        and self.backlog[s] >= cfg.client_queue_cap):
+                    self.shed[s] += 1   # definitive reject (no seq, no retry)
+                else:
+                    self.backlog[s] += 1
+            retry = (self.inflight[s]
+                     and t - self.t_sub[s] >= cfg.client_retry_backoff)
+            start = not self.inflight[s] and self.backlog[s] > 0
+            if start:
+                self.backlog[s] -= 1
+                self.inflight[s] = 1
+                self.t_start[s] = t
+            if start or retry:
+                self.t_sub[s] = t
+            self.submit[s] = 1 if (start or retry) else 0
+            if retry:
+                self.retries[s] += 1
 
 
 def exactly_once_report(cfg, st, metrics=None):

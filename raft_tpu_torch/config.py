@@ -40,6 +40,25 @@ SESSION_FLAG = 1 << 29
 SESSION_SID_SHIFT, SESSION_SID_MASK = 20, 0x1FF
 SESSION_SEQ_SHIFT, SESSION_SEQ_MASK = 10, 0x3FF
 SESSION_VAL_MASK = 0x3FF
+SESSION_REGISTER = SESSION_FLAG | (SESSION_SID_MASK << SESSION_SID_SHIFT)
+
+
+def session_payload(sid: int, seq: int, val: int) -> int:
+    """Encode an exactly-once session command (the CPU oracle's clients).
+    Raises ValueError on a sid outside [0, SESSION_SID_MASK) (sid
+    0x1FF is the REGISTER marker) or a seq outside [0,
+    SESSION_SEQ_MASK]: either would alias another session's slot."""
+    if not 0 <= sid < SESSION_SID_MASK:
+        raise ValueError(
+            f"session sid {sid} outside [0, {SESSION_SID_MASK}) "
+            f"(sid {SESSION_SID_MASK:#x} is the reserved REGISTER marker)")
+    if not 0 <= seq <= SESSION_SEQ_MASK:
+        raise ValueError(
+            f"session seq {seq} outside [0, {SESSION_SEQ_MASK}] — a "
+            f"session's lifetime is {SESSION_SEQ_MASK + 1} commands; "
+            f"open a new session instead of wrapping")
+    return (SESSION_FLAG | (sid << SESSION_SID_SHIFT)
+            | (seq << SESSION_SEQ_SHIFT) | (val & SESSION_VAL_MASK))
 
 
 def _prob_to_u32(p: float) -> int:

@@ -1,5 +1,7 @@
 """Nemesis programs: declarative gray-failure and storage-pressure
-clauses (`program`)."""
+clauses (`program`), and the coverage-guided search with its shrinker
+and reproducer artifacts (`search`; it imports the engines, so it is not
+imported here: `sim.step -> nemesis.program` must not become a cycle)."""
 
 from raft_tpu_torch.nemesis.program import (KIND_NAMES, Clause, clock_skew,
                                             compaction_pressure, crash_storm,

@@ -24,7 +24,6 @@ from typing import NamedTuple
 
 from raft_tpu_torch.config import _prob_to_u32
 from raft_tpu_torch.utils import rng as _r
-from raft_tpu_torch.utils import trng
 
 # JSON names of the clause kinds (stable: artifacts and manifests use them).
 KIND_NAMES = {
@@ -196,7 +195,7 @@ def program_hash(prog) -> str:
     flat = [len(prog)]
     for c in prog:
         flat.extend(int(x) for x in c)
-    return format(trng.hash_u32(*flat), "08x")
+    return format(_r.hash_u32(*flat), "08x")
 
 
 def describe(prog) -> str:

@@ -15,6 +15,10 @@ Metrics:
   `client_retries[G]` recomputed each tick from the client state, the
   `[H]` ack-latency histogram of the ops acked each tick and the
   longest ack latency `client_max_lat`.
+
+`trace` runs the same loop and stacks the per-tick observables the CPU
+oracle's snapshots carry, for the oracle differential
+(`obs.triage.oracle_divergence`).
 """
 
 from __future__ import annotations
@@ -129,6 +133,27 @@ def run(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0,
         st = tick(cfg, st, t)
         metrics = metrics_update(metrics, widen_state(cfg, st), cfg.log_cap)
     return st, metrics
+
+
+TRACE_FIELDS = ("term", "role", "voted_for", "leader_id", "last_index",
+                "commit", "applied", "digest", "snap_index", "snap_term",
+                "snap_voters", "reads_done")
+
+
+def trace(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0):
+    """Run `n_ticks` and return (state, trace): a dict of the per-tick
+    observables `core.Cluster.snapshot` exposes, `TRACE_FIELDS` and
+    `alive`, each stacked `[T, G, K]` on the state's device and read on
+    the widened state (the oracle's dtypes whatever the narrow dials)."""
+    fields = TRACE_FIELDS + ("alive",)
+    rows = {f: [] for f in fields}
+    for t in range(int(t0), int(t0) + int(n_ticks)):
+        st = tick(cfg, st, t)
+        sw = widen_state(cfg, st)
+        for f in TRACE_FIELDS:
+            rows[f].append(getattr(sw.nodes, f))
+        rows["alive"].append(sw.alive_prev)
+    return st, {f: torch.stack(v) for f, v in rows.items()}
 
 
 def total_rounds(metrics: Metrics) -> int:

@@ -1,6 +1,7 @@
-"""Raft's safety properties as predicates over torch tensors: those the
-per-tick safety fold checks (sim/check.py `tick_safety`), term for term
-the JAX package's `verify/invariants.py`.
+"""Raft's safety properties as predicates over torch tensors, term for
+term the JAX package's `verify/invariants.py`: those the per-tick
+safety fold checks (sim/check.py `tick_safety`), and the checker-side
+`log_matching` and `commit_durability`.
 
 Axis convention: the node axis is LAST for scalar leaves (`[..., K]`),
 second-to-last for ring leaves (`[..., K, L]`). Predicates return
@@ -68,6 +69,31 @@ def window_bounds(applied, commit, snap_index, last_index, log_cap: int):
     return ok.all(dim=-1)
 
 
+def log_matching(last_index, snap_index, log_term, log_payload,
+                 log_cap: int):
+    """Log Matching, point-in-time: if two logs hold an entry with the
+    same index and term, the entries carry the same payload. Slot s
+    holds the same absolute index on two nodes exactly when their slot
+    indices agree, so the pairwise compare is elementwise. Checker-side:
+    not in the per-tick fold."""
+    last_index = _signed(last_index)
+    k = last_index.shape[-1]
+    ok = torch.ones(last_index.shape[:-1], dtype=torch.bool,
+                    device=last_index.device)
+    absidx = slot_abs_index(snap_index, log_cap)      # [..., K, L]
+    for a in range(k):
+        for b in range(a + 1, k):
+            live = ((absidx[..., a, :] == absidx[..., b, :])
+                    & (absidx[..., a, :] <= last_index[..., a, None])
+                    & (absidx[..., b, :] <= last_index[..., b, None]))
+            m = live & (log_term[..., a, :] == log_term[..., b, :])
+            agree = torch.where(
+                m, log_payload[..., a, :] == log_payload[..., b, :],
+                True).all(dim=-1)
+            ok = ok & agree
+    return ok
+
+
 def leader_completeness(role, term, commit, last_index, snap_index,
                         log_payload, log_cap: int):
     """For each ordered pair (a, b) with role_a == LEADER and
@@ -92,6 +118,39 @@ def leader_completeness(role, term, commit, last_index, snap_index,
                 m, log_payload[..., a, :] == log_payload[..., b, :],
                 True).all(dim=-1)
             ok = ok & (~cond | (holds & agree))
+    return ok
+
+
+def commit_durability(commit, last_index, snap_index, log_payload,
+                      log_cap: int):
+    """Every index in a node's committed prefix that is still in its
+    window is held by a majority of the k nodes: node a holds index i
+    when i <= snap_index_a, or i sits live in a's window on the same
+    ring lane with the same payload. This is what acking an entry that
+    storage rejected breaks. Checker-side: not in the per-tick fold
+    (under membership change a commit quorum is a majority of the live
+    voter set, which the k-majority over-approximates)."""
+    commit = _signed(commit)
+    last_index = _signed(last_index)
+    k = commit.shape[-1]
+    majority = k // 2 + 1
+    absidx = slot_abs_index(snap_index, log_cap)      # [..., K, L]
+    snap = _signed(snap_index)
+    ok = torch.ones(commit.shape[:-1], dtype=torch.bool,
+                    device=commit.device)
+    for b in range(k):
+        idx_b = absidx[..., b, :]                         # [..., L]
+        live = idx_b <= commit[..., b, None]   # committed, in b's window
+        cnt = torch.zeros(idx_b.shape, dtype=torch.int32,
+                          device=idx_b.device)
+        for a in range(k):
+            held = ((idx_b <= snap[..., a, None])
+                    | ((absidx[..., a, :] == idx_b)
+                       & (idx_b <= last_index[..., a, None])
+                       & (log_payload[..., a, :]
+                          == log_payload[..., b, :])))
+            cnt = cnt + held.to(torch.int32)
+        ok = ok & torch.where(live, cnt >= majority, True).all(dim=-1)
     return ok
 
 

@@ -10,7 +10,10 @@ PreVote and membership change), on the flight ring, on nemesis programs
 one clause of every kind at k=3 and k=5, a 24-clause program), on shapes
 past the old per-thread bounds (k=9, log_cap=128), and on states with
 planted safety violations (where the kernel's
-own safety fold must clear exactly the planted groups). The packed wire
+own safety fold must clear exactly the planted groups). Divergence
+triage with the kernel as an engine: `bisect_divergence` of the plain
+tick against the kernel under the gray and pressure mixes, and a term
+bump injected into a kernel engine named by tick and leaf. The packed wire
 codec kernels against plain `pack`/`unpack` on chip_smoke.py's four
 packed universes at 1,000 groups, the histogram-free launch, the
 aliased in-place launch, the narrow dials and the streamed pipeline.
@@ -247,6 +250,46 @@ def test_kernel_nemesis_matches_plain_on_card(cuda, kw):
     if cfg.client_queue_cap:
         clients = kernel.kfinish(cfg, leaves, g)[0].clients
         assert int(clients.shed.sum()) > 0, "no arrival shed"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(n_groups=1000, **CONFIG4, nemesis=nemesis.gray_mix(73)),
+    dict(n_groups=1000, seed=49, sessions=True, cmds_per_tick=0,
+         client_rate=0.5, client_slots=4, client_retry_backoff=8,
+         client_queue_cap=8, nemesis=nemesis.pressure_mix(73)),
+], ids=["gray_mix", "pressure"])
+def test_bisect_plain_against_kernel_on_card(cuda, kw):
+    """`bisect_divergence` with the plain tick and the kernel as its two
+    engines (launches of 16 ticks and of one) finds no divergence, and
+    neither engine writes the State both start from."""
+    from raft_tpu_torch.nemesis import search
+    from raft_tpu_torch.obs.triage import bisect_divergence
+    cfg = RaftConfig(**kw)
+    st0 = state.init(cfg, device=cuda)
+    before = [t.clone() for t in st0.nodes if t is not None]
+    launches = kernel.kstep.launches
+    assert bisect_divergence(*search.plain_vs_kernel(cfg), st0, 73) is None
+    assert kernel.kstep.launches - launches == 5   # ceil(73 / 16)
+    assert all(torch.equal(x, y) for x, y in zip(
+        before, (t for t in st0.nodes if t is not None)))
+
+
+@pytest.mark.cuda
+def test_bisect_names_a_term_bump_in_the_kernel_engine(cuda):
+    """A term bump injected into a kernel engine is bisected to its tick
+    and to `.nodes.term`."""
+    from raft_tpu_torch.nemesis import search
+    from raft_tpu_torch.obs.triage import bisect_divergence
+    cfg = RaftConfig(n_groups=1000, **NEM_BASE,
+                     nemesis=nemesis.gray_mix(48))
+    clean, corrupt = search.term_corruption_pair(
+        29, group=17, node=1, engine=search.kernel_engine)(cfg)
+    rep = bisect_divergence(clean, corrupt, state.init(cfg, device=cuda), 48)
+    assert rep["tick"] == 29 and rep["boundary"] == (16, 32)
+    assert rep["leaf_report"].startswith(
+        "first divergent leaf: .nodes.term — int32[1000, 3]: ")
+    assert "first at [17,1]" in rep["leaf_report"]
 
 
 def past_the_clause_bound(cfg: RaftConfig) -> tuple:

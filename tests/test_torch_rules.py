@@ -12,13 +12,15 @@ from pathlib import Path
 import pytest
 
 from raft_tpu_torch.clients import state as cstate
-from raft_tpu_torch.obs import recorder
+from raft_tpu_torch.nemesis import search
+from raft_tpu_torch.obs import recorder, triage
 from raft_tpu_torch.parallel import cohort
-from raft_tpu_torch.sim import kernel, run, state
+from raft_tpu_torch.sim import checkpoint, kernel, run, state
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py"]
+    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py",
+     ROOT / "scripts" / "torch_nemesis_search.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -53,10 +55,18 @@ def test_scan_sees_imports():
 
 @pytest.mark.parametrize("fn", [state.init, run.metrics_init,
                                 cstate.clients_init, recorder.flight_init,
-                                cohort.host_wire, cohort.prun_streamed],
+                                cohort.host_wire, cohort.prun_streamed,
+                                checkpoint.load, triage.oracle_divergence,
+                                search.run_signals, search.search,
+                                search.first_unsafe_tick,
+                                search.divergence_repro,
+                                search.safety_repro],
                          ids=["state.init", "run.metrics_init",
                               "clients_init", "flight_init", "host_wire",
-                              "prun_streamed"])
+                              "prun_streamed", "checkpoint.load",
+                              "oracle_divergence", "run_signals", "search",
+                              "first_unsafe_tick", "divergence_repro",
+                              "safety_repro"])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
