@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--obs-dir DIR]
 
 Drives raft_tpu_torch's paths at full width: the batched Raft tick at
 k=5, L=32, E=4 through the fused-chunk CUDA kernel
@@ -97,11 +97,34 @@ launch counts set to 0 just before it and read just after:
    on the kernel, through `checkpoint.save`/`load`, and 200 more, equal
    to phase 5 at tick 400; `oracle_divergence` of the all-kinds program
    (8 groups, 4 on the CPU oracle, 120 ticks) with none;
+(i) observability: the headline, config-4, election rounds, clients and
+   nemesis again from phase 5's inputs through `kernel.krun` (3 x
+   200-tick launches each), and phase (f)'s streamed headline through
+   `cohort.prun_streamed`, under an `obs.trace` Tracer and a
+   Heartbeat(every=1): exactly one chunk span per kernel launch (and one
+   span per codec launch and per window's h2d, compute and d2h), each
+   span's `device_ms` positive and their sum per run, with the heartbeat
+   spans' host time between launches, the run's CUDA-event total (within
+   2% + 1 ms), each heartbeat's `rounds_total` the wire's
+   `kcommitted` at its tick (58,438,894 for the headline at 600), one
+   `obs.manifest` record per run with its rates, card, power limit and
+   `obs.roofline` stamp (phase (f)'s with the stream keys), the trace
+   valid, `obs.history` reading the manifest back and
+   `scripts/torch_bench_history.py --check` passing; an `obs` JSON line
+   with the trace's path, its event count and each run's attainment.
+   Files go to a temporary directory, removed at the end, or with
+   `--obs-dir DIR` to DIR. The same Tracer also records phases 2-5 (the
+   builds, the library loads, every plain and kernel chunk with the
+   allocator's cudaMalloc, cudaFree and retry counts in its args) and
+   every garbage collection into that trace; phases 6 and (a)-(h) run
+   untraced;
 7. a `kernels` JSON line: launches, times and bound of the fused chunk
    and the two codec kernels, and the same for each flag set's build by
    run (with each run's steady-state time: three launches more from its
    start, CUDA events), with the build's ptxas numbers and each run's
-   block shape.
+   block shape. Every bound comes from `obs.roofline` (bytes from
+   `analysis.bytemodel`, operations from `roofline.run_ops`); phase (e)
+   also requires `bytemodel.byte_model_problems()` to be empty.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -109,6 +132,7 @@ result line, when CUDA is unavailable or any phase fails.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import dataclasses
 import itertools
@@ -126,12 +150,6 @@ import torch
 CHUNK, N_TICKS = 200, 600
 GPU_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"]
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-# int32 CUDA-core rate: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost
-# (NVIDIA Hopper architecture white paper).
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-MIX_OPS = 7          # mix32: 3 xors, 2 shifts, 2 multiplies
-FOLD_OPS = MIX_OPS + 2   # one hash_u32 argument: multiply, add, mix32
 # bench.py's pressure knee: offered rates, admission cap, SLO
 # (bench.py:1200-1208)
 PRESSURE_RATES = (0.05, 0.1, 0.2, 0.35, 0.5)
@@ -247,160 +265,6 @@ def _leaves(tree):
     return out
 
 
-def op_count(cfg, g, n_ticks, st0, st1, committed) -> float:
-    """Integer operations the counter-based hashes of this run need (a
-    floor of the tick's work), counted from this run's schedules and
-    states: the crash and partition draws once per group per epoch (they
-    hash (group, node, epoch) only), one drop draw per link the delivery
-    filter reads (`live_links`), one fire draw per group per membership
-    and transfer epoch and one target draw where it fires, the deadline
-    draws taken, one payload hash per committed entry (fire-hose
-    commands), one arrival draw per client slot per group-tick and one
-    value hash per submit pulse (clients), one digest fold per applied
-    entry, and the nemesis program's draws (`nem_ops`). A run starts at
-    tick 0."""
-    from raft_tpu_torch.utils import trng
-    k, gid = cfg.k, st0.group_id
-
-    def epochs(epoch):
-        return -(-n_ticks // epoch)
-
-    ops = 0.0
-    if cfg.crash_u32:
-        ops += k * 5 * FOLD_OPS * g * epochs(cfg.crash_epoch)
-    if cfg.partition_u32:
-        ops += (4 + k * 5) * FOLD_OPS * g * epochs(cfg.partition_epoch)
-    if cfg.drop_u32:
-        ops += 6 * FOLD_OPS * live_links(cfg, gid, n_ticks)
-    for fires, u32, epoch in ((trng.reconfig_fires, cfg.reconfig_u32,
-                               cfg.reconfig_epoch),
-                              (trng.transfer_fires, cfg.transfer_u32,
-                               cfg.transfer_epoch)):
-        if u32:
-            ep = torch.arange(epochs(epoch), device=gid.device)
-            fired = int(fires(cfg.seed, gid[:, None], ep[None, :],
-                              u32).sum())
-            ops += 4 * FOLD_OPS * (g * epochs(epoch) + fired)
-    draws = int((st1.nodes.rng_draws.to(torch.int64)
-                 - st0.nodes.rng_draws.to(torch.int64)).sum())
-    applied = int((st1.nodes.applied.to(torch.int64)
-                   - st0.nodes.applied.to(torch.int64)).clamp(min=0).sum())
-    ops += draws * 5 * FOLD_OPS + applied * (2 * MIX_OPS + 4)
-    if cfg.cmds_per_tick:
-        ops += committed * 5 * FOLD_OPS
-    if cfg.clients_u32:
-        ops += cfg.client_slots * g * n_ticks * 5 * FOLD_OPS
-        ops += submit_pulses(st1.clients) * 5 * FOLD_OPS
-    if cfg.nemesis:
-        ops += nem_ops(cfg, gid, n_ticks, draws)
-    return ops
-
-
-def nem_ops(cfg, gid, n_ticks, draws) -> float:
-    """The nemesis program's hash work in a run from tick 0: one
-    participation draw per clause per group; a link draw on each link a
-    link clause hits in a participating group inside its span (and the
-    clause's target, site or side draws); per participating group and
-    sub-epoch of the span, a crash draw per node (storms), a fire draw
-    (disk) and a block draw per node (compaction); one skew draw per
-    deadline draw and skew clause."""
-    from raft_tpu_torch.utils import rng, trng
-    k, g = cfg.k, gid.to(torch.int64)
-    ops = len(cfg.nemesis) * g.numel() * 4 * FOLD_OPS
-    for c in cfg.nemesis:
-        kind, t0, t1, group_u32, _, a, _, cid = c
-        part = trng.hash_u32(cfg.seed, rng.TAG_NEM_GROUP, cid, g) < group_u32
-        n_part = int(part.sum())
-        lo, hi = min(t0, n_ticks), min(t1, n_ticks)
-        if kind in rng.NEM_LINK_KINDS:
-            # The hit links change per tick (wave), per sub-epoch (flaky
-            # bursts) or never (slow follower, WAN sites).
-            key = {rng.NEM_SLOW: lambda t: 0, rng.NEM_WAN: lambda t: 0,
-                   rng.NEM_FLAKY: lambda t: t // a}.get(kind, lambda t: t)
-            memo, hits = {}, 0
-            for t in range(lo, hi):
-                if key(t) not in memo:
-                    memo[key(t)] = int((link_hits(cfg, c, g, t)
-                                        & part[:, None, None]).sum())
-                hits += memo[key(t)]
-            ops += hits * 7 * FOLD_OPS + n_part * k * 6 * FOLD_OPS
-        elif kind == rng.NEM_SKEW:
-            ops += draws * 5 * FOLD_OPS
-        elif hi > lo:
-            subs = (hi - 1) // a - lo // a + 1
-            per = {rng.NEM_STORM: k * 6, rng.NEM_DISK: 5 + 4,
-                   rng.NEM_COMPACT: k * 6}[kind]
-            ops += n_part * subs * per * FOLD_OPS
-    return ops
-
-
-def link_hits(cfg, c, g, t):
-    """[G, src, dst]: the links (src != dst) one link clause hits at tick
-    t, before its per-link draw (the kernel's `nem_links`)."""
-    from raft_tpu_torch.utils import rng, trng
-    kind, _, _, _, _, a, b, cid = c
-    k, seed = cfg.k, cfg.seed
-    node = torch.arange(k, device=g.device)
-    gg = g[:, None, None]
-    src, dst = node[None, :, None], node[None, None, :]
-    if kind == rng.NEM_SLOW:
-        target = trng.hash_u32(seed, rng.TAG_NEM_NODE, cid, gg) % k
-        hit = (((a & 1) != 0) & (src == target)) | \
-            (((a & 2) != 0) & (dst == target))
-    elif kind == rng.NEM_FLAKY:
-        s0 = trng.hash_u32(seed, rng.TAG_NEM_NODE, cid, gg, 0) % k
-        d0 = (s0 + 1 + trng.hash_u32(seed, rng.TAG_NEM_NODE, cid, gg, 1)
-              % max(k - 1, 1)) % k
-        burst = trng.hash_u32(seed, rng.TAG_NEM_BURST, cid, gg, t // a) < b
-        hit = (src == s0) & (dst == d0) & burst & (k > 1)
-    elif kind == rng.NEM_WAN:
-        hit = (trng.hash_u32(seed, rng.TAG_NEM_NODE, cid, gg, src) % a
-               != trng.hash_u32(seed, rng.TAG_NEM_NODE, cid, gg, dst) % a)
-    else:   # NEM_WAVE
-        wave = (t + gg) % a < b
-        hit = wave & ((trng.hash_u32(seed, rng.TAG_NEM_SIDE, cid, gg, t // a,
-                                     src) & 1)
-                      != (trng.hash_u32(seed, rng.TAG_NEM_SIDE, cid, gg,
-                                        t // a, dst) & 1))
-    return hit & (src != dst)
-
-
-def submit_pulses(cl) -> int:
-    """The submit pulses phase C consumed in a run from tick 0: every op
-    started (done or in flight) and every retry raised a pulse, less the
-    pulses the last tick raised for the tick after the run."""
-    return int(sum(getattr(cl, f).to(torch.int64).sum()
-                   for f in ("done", "inflight", "retries"))
-               - cl.submit.to(torch.int64).sum())
-
-
-def live_links(cfg, gid, n_ticks) -> int:
-    """The (tick, group, src, dst) with src != dst whose receiver is alive
-    and whose link is not cut: the links whose drop draw the delivery
-    filter reads. Aliveness and cuts hold for a whole epoch, so each
-    (crash epoch, partition epoch) pair is counted once and weighted by
-    its ticks."""
-    from raft_tpu_torch.utils import trng
-    span, first = collections.Counter(), {}
-    for t in range(n_ticks):
-        key = (t // cfg.crash_epoch, t // cfg.partition_epoch)
-        span[key] += 1
-        first.setdefault(key, t)
-    node = torch.arange(cfg.k, device=gid.device)
-    g = gid.to(torch.int64)[:, None, None]
-    src, dst = node[None, :, None], node[None, None, :]
-    total = 0
-    for key, t in first.items():
-        alive = trng.node_alive(cfg.seed, g, dst, t, cfg.crash_u32,
-                                cfg.crash_epoch)
-        cut = trng.link_partitioned(cfg.seed, g, t, src, dst,
-                                    cfg.partition_u32, cfg.partition_epoch)
-        total += int((alive & ~cut & (src != dst)).sum()) * span[key]
-    return total
-
-
-
-
 def all_runs():
     """(label, cfg, groups, flight ring on, chunks of the plain reference)
     of every run. The main path:
@@ -494,22 +358,62 @@ def finished(kernel, cfg, leaves, g):
     return out if flight is None else out + (flight,)
 
 
-def chunked(step, cfg, leaves, n_chunks=None):
+def chunked(step, cfg, leaves, n_chunks=None, engine="cuda"):
     """Run `step` over the first `n_chunks` (default: all) CHUNK-tick
     chunks of N_TICKS: (the leaves after each chunk, each chunk's ms by
     CUDA events). An aliased launch writes over its input, so under
-    alias_wire each chunk's leaves are kept as copies."""
+    alias_wire each chunk's leaves are kept as copies. With a tracer
+    installed each chunk is a chunk span of `engine`, outside the
+    chunk's own events."""
+    from raft_tpu_torch.obs import trace
     outs, ms = [], []
     for at in range(0, N_TICKS, CHUNK)[:n_chunks]:
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        e0.record()
-        leaves = step(cfg, leaves, at, CHUNK)
-        e1.record()
+        with trace.chunk_span(engine, at, CHUNK, leaves[0].device) as args:
+            before = alloc_counts() if args is not None else None
+            e0.record()
+            leaves = step(cfg, leaves, at, CHUNK)
+            e1.record()
+            if args is not None:   # the allocator's work in this chunk
+                args.update({k: v - before[k]
+                             for k, v in alloc_counts().items()})
         torch.cuda.synchronize()
         outs.append(tuple(x.clone() for x in leaves) if cfg.alias_wire
                     else leaves)
         ms.append(e0.elapsed_time(e1))
     return outs, ms
+
+
+def trace_gc(trace) -> None:
+    """Record each garbage collection as a span on the installed tracer
+    (a host pause the launches around it wait for)."""
+    import gc
+    import threading
+    began = {}
+
+    def on_gc(phase, info):
+        tracer = trace.get_tracer()
+        if tracer is None:
+            return
+        if phase == "start":
+            began["us"] = tracer.now_us()
+        elif "us" in began:
+            t0 = began.pop("us")
+            tracer.complete(f"gc gen{info['generation']}", t0,
+                            tracer.now_us() - t0,
+                            threading.get_ident() & 0x7FFFFFFF,
+                            collected=info["collected"])
+
+    gc.callbacks.append(on_gc)
+
+
+def alloc_counts() -> dict:
+    """The caching allocator's device allocations (cudaMalloc), frees
+    (cudaFree) and retries after a failed allocation, so far."""
+    s = torch.cuda.memory_stats()
+    return {"cuda_mallocs": s.get("segment.all.allocated", 0),
+            "cuda_frees": s.get("segment.all.freed", 0),
+            "alloc_retries": s.get("num_alloc_retries", 0)}
 
 
 def reset_counts(kernel):
@@ -784,20 +688,307 @@ def search_and_triage(dev, head_400, n_head, hunt=HUNT,
     return launches, secs
 
 
-def main() -> int:
+# Phase (i): the runs traced on the card and the manifest segment each
+# records under (bench.py's names; the history trends the first four).
+OBS_RUNS = (("headline", "throughput"), ("config-4", "config-4 fault run"),
+            ("election-rounds", "election-rounds"),
+            ("clients", "client-slo fault mix"),
+            ("nemesis", "nemesis gray mix"))
+HEADLINE_ROUNDS = 58_438_894   # every chip run since the first
+
+
+def near(a, total) -> bool:
+    """A run's chunk spans' device time plus its heartbeats' host time
+    (the card idles while the host reads the lanes) against the run's
+    CUDA-event total: within 2% + 1 ms."""
+    return abs(a - total) <= 0.02 * total + 1.0
+
+
+def spans_of(events, prefix) -> list:
+    """The complete spans whose names start with `prefix`."""
+    return [e for e in events
+            if e["ph"] == "X" and e["name"].startswith(prefix)]
+
+
+def span_ms(events, prefix) -> list:
+    """The host durations (ms) of those spans."""
+    return [round(e["dur"] / 1e3, 2) for e in spans_of(events, prefix)]
+
+
+def observability(dev, power_w, obs_dir, tracer, by_label, wire, main,
+                  run_ops):
+    """Phase (i): the main path's runs again from phase 5's inputs under a
+    tracer and a `Heartbeat(every=1)`, through the package's drivers
+    (`kernel.krun`, `cohort.prun_streamed`), each with an `emit_manifest`
+    record; then the trace validated, the manifest read back by
+    `obs.history` and gated by `scripts/torch_bench_history.py --check`.
+    Files go to `obs_dir`, or to a temporary directory removed at the
+    end. Returns the report printed on the `obs` line."""
+    from raft_tpu_torch import nemesis
+    from raft_tpu_torch.config import LAYOUT_FIELDS
+    from raft_tpu_torch.obs import history, manifest, recorder, roofline
+    from raft_tpu_torch.obs import trace
+    from raft_tpu_torch.parallel import cohort
+    from raft_tpu_torch.sim import kernel, run, state
+
+    keep = obs_dir is not None
+    d = Path(obs_dir) if keep else Path(tempfile.mkdtemp(
+        prefix="chip_smoke_obs_"))
+    d.mkdir(parents=True, exist_ok=True)
+    paths = {k: d / name for k, name in (("trace", "trace.json"),
+                                         ("heartbeat", "heartbeat.jsonl"),
+                                         ("manifest", "manifest.jsonl"))}
+    for p in paths.values():
+        p.unlink(missing_ok=True)
+    device = f"cuda:{torch.cuda.get_device_name(0)}"
+
+    def dials(cfg):
+        return {**{k: getattr(cfg, k) for k in LAYOUT_FIELDS},
+                "nemesis_program_hash": nemesis.program_hash(cfg.nemesis),
+                "nemesis_clauses": nemesis.to_json(cfg.nemesis),
+                **roofline.narrow_segment_fields(cfg)}
+
+    def beats(pred):
+        return [b for b in map(json.loads,
+                               paths["heartbeat"].read_text().splitlines())
+                if pred(b["label"])]
+
+    report = {}
+    trace.set_tracer(tracer)
+    trace.set_heartbeat(trace.Heartbeat(str(paths["heartbeat"]), every=1))
+    try:
+        for label, segment in OBS_RUNS:
+            _, cfg, g, fl, _ = by_label[label]
+            leaves = wire(label, cfg, g, fl)
+            reset_counts(kernel)
+            n0 = len(tracer.events)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            with trace.span(f"obs {label}", trace.CAT_SEGMENT, groups=g):
+                e0.record()
+                leaves = kernel.krun(cfg, leaves, 0, N_TICKS, CHUNK,
+                                     label=label)
+                e1.record()
+                torch.cuda.synchronize()
+            total = e0.elapsed_time(e1)
+            chunks = spans_of(tracer.events[n0:], "chunk cuda ")
+            dev_ms = [e["args"]["device_ms"] for e in chunks]
+            host_ms = [e["dur"] / 1e3 for e in chunks]
+            beat_ms = sum(e["dur"] / 1e3 for e in spans_of(
+                tracer.events[n0:], "heartbeat "))
+            n = N_TICKS // CHUNK
+            if not (len(chunks) == kernel.kstep.launches == n
+                    and min(dev_ms) > 0
+                    and near(sum(dev_ms) + beat_ms, total)):
+                raise AssertionError(
+                    f"(i) {label}: {len(chunks)} chunk spans for "
+                    f"{kernel.kstep.launches} launches, device ms {dev_ms} "
+                    f"and {beat_ms:.3f} ms of heartbeats against a total "
+                    f"of {total:.3f}")
+            last = main[label][0][-1]
+            if words_err(leaves[0], last[0]) or words_err(leaves[1], last[1]):
+                raise AssertionError(f"(i) {label}: the traced run differs "
+                                     f"from phase 5's")
+            got = [(b["tick"], b["rounds_total"]) for b in
+                   beats(lambda x, lb=label: x == lb)]
+            want = [(CHUNK * (i + 1),
+                     kernel.kcommitted(cfg, main[label][0][i], g))
+                    for i in range(n)]
+            if got != want or (label == "headline"
+                               and got[-1][1] != HEADLINE_ROUNDS):
+                raise AssertionError(f"(i) {label}: heartbeats {got}, "
+                                     f"kcommitted {want}")
+            st1, m = kernel.kfinish(cfg, leaves, g)
+            secs = sum(dev_ms) / 1e3
+            rates = {"rounds_per_sec": run.total_rounds(m) / secs}
+            if label == "election-rounds":
+                rates["elections_per_sec"] = int(m.elections) / secs
+            if cfg.clients_u32:
+                rates["client_ops_per_sec"] = kernel.kacked(cfg, leaves,
+                                                            g) / secs
+            stamp = roofline.segment_fields(
+                cfg, g, "cuda", ticks=N_TICKS, timed_wall_s=secs,
+                chunk_ticks=CHUNK, ring=recorder.RING if fl else 0,
+                ops=run_ops(label) / N_TICKS)
+            manifest.emit_manifest(
+                segment, cfg, str(paths["manifest"]), device=device,
+                power_limit_w=power_w, engine="cuda-fused-chunk",
+                n_groups=g, ticks=N_TICKS, chunk_device_ms=dev_ms,
+                chunk_host_ms=host_ms, timed_wall_s=secs,
+                trace_path=str(paths["trace"]), **rates, **stamp,
+                **dials(cfg), **roofline.stream_segment_fields(cfg))
+            enq = [e["args"]["enqueue_ms"] for e in chunks]
+            report[label] = {"device_ms": [round(x, 3) for x in dev_ms],
+                             "host_ms": [round(x, 3) for x in host_ms],
+                             "enqueue_ms": [round(x, 3) for x in enq],
+                             "attainment_pct": stamp["attainment_pct"],
+                             "bound": stamp["bound"]}
+            print(f"[i] {label} {g} groups: {n} chunk spans, device ms "
+                  f"{report[label]['device_ms']} (sum {sum(dev_ms):.2f}, "
+                  f"with the heartbeats' {beat_ms:.2f}, against the run's "
+                  f"events {total:.2f}), host ms "
+                  f"{report[label]['host_ms']}, enqueue ms "
+                  f"{report[label]['enqueue_ms']}, allocation spans ms "
+                  f"{span_ms(tracer.events[n0:], 'kstep alloc')}; "
+                  f"{n} heartbeats equal "
+                  f"kcommitted at ticks 200/400/600; "
+                  f"{', '.join(f'{k} {v:.1f}' for k, v in rates.items())}; "
+                  f"attainment {stamp['attainment_pct']}% of the "
+                  f"{stamp['bound']} bound", flush=True)
+            del leaves, st1, m
+
+        # phase (f)'s streamed headline, ten windows
+        cfg = by_label["headline"][1]
+        scfg = dataclasses.replace(cfg, pack_bools=True, pack_ring=True,
+                                   stream_groups=True,
+                                   cohort_blocks=STREAM_BLOCKS)
+        st0 = state.init(cfg, STREAM_GROUPS, device=dev)
+        reset_counts(kernel)
+        n0, stats = len(tracer.events), {}
+        with trace.span("obs streamed", trace.CAT_SEGMENT,
+                        groups=STREAM_GROUPS):
+            st1, m = cohort.prun_streamed(scfg, st0, CHUNK, stats=stats,
+                                          device=dev)
+            torch.cuda.synchronize()
+        ev = tracer.events[n0:]
+        spans = {k: spans_of(ev, k)
+                 for k in ("chunk cuda ", "wire_pack cuda", "wire_unpack cuda",
+                           "h2d c", "compute c", "d2h c", "heartbeat ")}
+        beat_ms = sum(e["dur"] / 1e3 for e in spans["heartbeat "])
+        got = counts(kernel)
+        n_win = len(cohort.cohort_windows(scfg, STREAM_GROUPS))
+        dev_ms = [e["args"]["device_ms"] for e in spans["chunk cuda "]]
+        hb = beats(lambda x: x.startswith(cohort.ENGINE + ":c"))
+        rounds = run.total_rounds(m)
+        if not (len(spans["chunk cuda "]) == got["fused_chunk"] == n_win
+                and len(spans["wire_pack cuda"]) == got["wire_pack"]
+                == 2 * n_win
+                and len(spans["wire_unpack cuda"]) == got["wire_unpack"]
+                == 2 * n_win
+                and all(len(spans[k]) == n_win
+                        for k in ("h2d c", "compute c", "d2h c"))
+                and min(dev_ms) > 0
+                and near(sum(dev_ms) + beat_ms, 1e3 * stats["compute_s"])
+                and len(hb) == n_win
+                and sum(b["rounds_total"] for b in hb) == rounds
+                and all(b["tick"] == CHUNK for b in hb)):
+            raise AssertionError(
+                f"(i) streamed: spans "
+                f"{ {k: len(v) for k, v in spans.items()} }, launches {got}, "
+                f"device ms sum {sum(dev_ms):.3f} and "
+                f"{beat_ms:.3f} ms of heartbeats against "
+                f"{1e3 * stats['compute_s']:.3f}, {len(hb)} heartbeats "
+                f"summing {sum(b['rounds_total'] for b in hb)} of {rounds}")
+        secs = sum(dev_ms) / 1e3
+        stamp = roofline.segment_fields(
+            scfg, STREAM_GROUPS, "cuda-streamed", ticks=CHUNK,
+            timed_wall_s=secs, chunk_ticks=CHUNK,
+            ops=roofline.run_ops(scfg, STREAM_GROUPS, CHUNK, st0, st1,
+                                 rounds) / CHUNK)
+        manifest.emit_manifest(
+            "throughput streamed", scfg, str(paths["manifest"]),
+            device=device, power_limit_w=power_w, engine=cohort.ENGINE,
+            n_groups=STREAM_GROUPS, ticks=CHUNK,
+            rounds_per_sec=rounds / stats["wall_s"],
+            launch_rounds_per_sec=rounds / secs, chunk_device_ms=dev_ms,
+            pipeline={k: stats[k] for k in ("h2d_s", "compute_s", "d2h_s",
+                                            "wall_s")},
+            timed_wall_s=stats["wall_s"], trace_path=str(paths["trace"]),
+            **stamp, **dials(scfg),
+            **roofline.stream_segment_fields(
+                scfg, measured=stats["overlap_efficiency_measured"],
+                chunk_ticks=CHUNK))
+        report["streamed"] = {"attainment_pct": stamp["attainment_pct"],
+                              "bound": stamp["bound"],
+                              "overlap": stats["overlap_efficiency_measured"]}
+        print(f"[i] streamed {STREAM_GROUPS} groups, {n_win} windows: "
+              f"{len(spans['chunk cuda '])} chunk spans, "
+              f"{len(spans['wire_unpack cuda'])} + "
+              f"{len(spans['wire_pack cuda'])} codec spans, {n_win} h2d / "
+              f"compute / d2h spans on the stream lanes; launches {got}; "
+              f"device ms sum {sum(dev_ms):.2f}, with the heartbeats' "
+              f"{beat_ms:.2f}, against the pipeline's compute "
+              f"{1e3 * stats['compute_s']:.2f}; {n_win} heartbeats "
+              f"summing {rounds} rounds; overlap "
+              f"{stats['overlap_efficiency_measured']:.4f} (traced); "
+              f"attainment {stamp['attainment_pct']}% of the "
+              f"{stamp['bound']} bound", flush=True)
+        del st0, st1, m
+    finally:
+        trace.set_tracer(None)
+        trace.set_heartbeat(None)
+
+    tracer.save(str(paths["trace"]))
+    problems = trace.validate_trace(json.loads(paths["trace"].read_text()))
+    records = [json.loads(x) for x in
+               paths["manifest"].read_text().splitlines()]
+    segments = [r["segment"] for r in records]
+    bad = [r["segment"] for r in records if any(
+        r.get(k) is None for k in ("config_hash", "device", "power_limit_w",
+                                   "predicted_rounds_per_sec",
+                                   "attainment_pct", "bound"))
+        or r["bound"] not in ("bytes", "operations")]
+    streamed = records[-1]
+    if problems or bad or segments != [s for _, s in OBS_RUNS] + [
+            "throughput streamed"] or not streamed["stream_groups"] or any(
+            streamed.get(k) is None for k in (
+                "cohort_blocks", "overlap_efficiency_predicted",
+                "overlap_efficiency_measured")):
+        raise AssertionError(f"(i) trace problems {problems[:3]}, records "
+                             f"missing their stamp {bad}, segments "
+                             f"{segments}")
+    rows = history.load_history(str(paths["manifest"]))
+    rated = [r for r in records if history.rate_of(r)]
+    if sorted(r["value"] for r in rows) != sorted(
+            r[history.rate_of(r)[0]] for r in rated):
+        raise AssertionError(f"(i) history read {len(rows)} rows from "
+                             f"{len(rated)} rate-bearing records")
+    gate = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "torch_bench_history.py"),
+         "--manifest", str(paths["manifest"]), "--check"],
+        capture_output=True, text=True, timeout=120)
+    if gate.returncode != 0:
+        raise AssertionError(f"(i) torch_bench_history.py --check: rc "
+                             f"{gate.returncode}\n{gate.stderr}")
+    n_spans = len(tracer.events)
+    print(f"[i] trace {paths['trace']}: {n_spans} events, schema valid; "
+          f"manifest {len(records)} records, {len(rows)} history rows; "
+          f"torch_bench_history.py --check rc 0"
+          + ("" if keep else " (directory removed)"), flush=True)
+    if not keep:
+        shutil.rmtree(d)
+    return {"trace_path": str(paths["trace"]), "kept": keep,
+            "spans": n_spans, "runs": report}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--obs-dir", default=None,
+                    help="keep phase (i)'s trace, heartbeat and manifest "
+                         "in this directory (default: a temporary "
+                         "directory, removed at the end)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from raft_tpu_torch.analysis import bytemodel
     from raft_tpu_torch.clients import workload
-    from raft_tpu_torch.obs import recorder
+    from raft_tpu_torch.obs import recorder, roofline, trace
     from raft_tpu_torch.sim import kernel, run, state
     from raft_tpu_torch.verify import plant
 
     dev = torch.device("cuda")
     t_start = time.time()
+    # One trace of the build, the plain reference and the kernel runs of
+    # phases 2-5, and of phase (i); phases (a)-(h) run untraced (a chunk
+    # span waits for its launch, which would change the streamed
+    # pipeline's overlap).
+    tracer = trace.Tracer()
+    trace.set_tracer(tracer)
+    trace_gc(trace)
 
     # 1. the card
     card = gpu_line()
+    power_w = float(card.split(",")[-1].split()[0])
     print(f"[1] gpu: {card}", flush=True)
 
     # 2. build the flag sets without nemesis and those the runs launch with
@@ -848,8 +1039,10 @@ def main() -> int:
 
     for label, cfg, g, fl, n_plain in runs:
         starts[label] = state.init(cfg, g, device=dev)
-        plain[label] = chunked(kernel.kstep_plain, cfg,
-                               wire(label, cfg, g, fl), n_plain)
+        with trace.span(f"plain {label}", trace.CAT_SEGMENT, groups=g):
+            plain[label] = chunked(kernel.kstep_plain, cfg,
+                                   wire(label, cfg, g, fl), n_plain,
+                                   engine="plain")
         print(f"[4] plain {label}, {g} groups, {n_plain * CHUNK} ticks: "
               f"chunk ms {[round(x, 1) for x in plain[label][1]]}",
               flush=True)
@@ -860,11 +1053,24 @@ def main() -> int:
     for label, cfg, g, fl, _ in runs:
         leaves = wire(label, cfg, g, fl)
         kernel.kstep.launches = 0
-        main[label] = chunked(kernel.kstep, cfg, leaves)
+        n0 = len(tracer.events)
+        with trace.span(f"kernel {label}", trace.CAT_SEGMENT, groups=g):
+            main[label] = chunked(kernel.kstep, cfg, leaves)
         launches[label] = kernel.kstep.launches
+        ev = tracer.events[n0:]
+        chunks = spans_of(ev, "chunk cuda ")
+        print(f"[5] {label} traced: device ms "
+              f"{[round(e['args']['device_ms'], 2) for e in chunks]}, "
+              f"enqueue ms "
+              f"{[round(e['args']['enqueue_ms'], 2) for e in chunks]}, "
+              f"cudaMallocs {[e['args']['cuda_mallocs'] for e in chunks]}, "
+              f"allocation spans ms {span_ms(ev, 'kstep alloc')}, garbage "
+              f"collections ms {span_ms(ev, 'gc ')}", flush=True)
         if launches[label] != N_TICKS // CHUNK:
             raise AssertionError(f"{label} launched the kernel "
                                  f"{launches[label]} times")
+
+    trace.set_tracer(None)   # phases 6 and (a)-(h) run untraced
 
     # 6. every chunk boundary against the plain tick, then the readouts
     err, n_cmp = 0, 0
@@ -888,6 +1094,17 @@ def main() -> int:
         if run.unsafe_groups(m):
             raise AssertionError(f"{label}: safety bit dropped")
         out[label] = (st1, m, sum(main[label][1]) / 1e3)
+    ops = {}
+
+    def run_ops(label):
+        """The hash operations of a run of phase 5 (obs.roofline), once."""
+        if label not in ops:
+            _, cfg, g, _, _ = by_label[label]
+            st1, m, _ = out[label]
+            ops[label] = roofline.run_ops(cfg, g, N_TICKS, starts[label],
+                                          st1, run.total_rounds(m))
+        return ops[label]
+
     g_head = runs[0][2]
     st1, m, secs = out["headline"]
     rounds = run.total_rounds(m)
@@ -1111,20 +1328,19 @@ def main() -> int:
         "wire_unpack": dict(
             replaces="raft_tpu/sim/pkernel.py:1901",
             ms=time_ms(lambda: kernel.unpack_wire(pcfg, rest, work)),
-            plain_ms=time_ms(lambda: kernel.unpack(pcfg, rest), 5),
-            words=rest.shape[0] + work.shape[0]),
+            plain_ms=time_ms(lambda: kernel.unpack(pcfg, rest), 5)),
         "wire_pack": dict(
             replaces="raft_tpu/sim/pkernel.py:1847",
             ms=time_ms(lambda: kernel.pack_wire(pcfg, work, rest)),
             plain_ms=time_ms(lambda: kernel.pack(
-                pcfg, work, kernel.ring_flags(pcfg, rest)), 5),
-            words=rest.shape[0] + work.shape[0] + 1)}
-    for name, c in codec.items():
-        c["bound_ms"] = c["words"] * 4 * g / HBM_BYTES_PER_S * 1e3
+                pcfg, work, kernel.ring_flags(pcfg, rest)), 5))}
+    for name, b in roofline.codec_roofline(pcfg, g).items():
+        c = codec[name]
+        c["bound_ms"] = b["bound_ms"]
         print(f"[a] {name} at {g} headline groups: {c['ms']:.4f} ms per "
               f"launch, plain {c['plain_ms']:.3f} ms, bound by bytes "
-              f"{c['bound_ms']:.4f} ms ({c['words'] * 4} B/group)",
-              flush=True)
+              f"{c['bound_ms']:.4f} ms ({b['bytes'] // g} B/group, "
+              f"obs.roofline)", flush=True)
     del rest, work
 
     # (b) wire_hist=False: State, lanes and Flight as phase 5's, the
@@ -1224,7 +1440,14 @@ def main() -> int:
     print(f"[d] refused on the card: {ring_msg[:60]}...; "
           f"{narrow_msg[:66]}...", flush=True)
 
-    # (e) the memory of one headline kstep, beside the byte model
+    # (e) the memory of one headline kstep, beside the byte model, and
+    # the byte model reconciled (analysis.bytemodel)
+    problems = bytemodel.byte_model_problems()
+    if problems:
+        raise AssertionError("(e) byte model: " + "; ".join(problems))
+    print(f"[e] analysis.bytemodel: wire and resident bytes reconciled on "
+          f"{len(bytemodel.audit_cfgs())} layouts, flight ring on and off; "
+          f"pins {bytemodel.WIRE_PINS} B/group", flush=True)
     cfg, g = runs[0][1], runs[0][2]
     memory = {}
     leaves = None   # nothing but the launch's own tensors may come and go
@@ -1332,20 +1555,20 @@ def main() -> int:
           f"{ {k: round(v, 1) for k, v in h_secs.items()} }); kernel "
           f"launches by step {got}, by build {dict(per_build)}", flush=True)
 
+    # (i) observability on the card: the main path traced, with its
+    # heartbeat, manifest and history
+    obs = observability(dev, power_w, args.obs_dir, tracer, by_label, wire,
+                        main, run_ops)
+    print(json.dumps({"obs": obs}), flush=True)
+
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with
-    def bound(label, cfg, g):
-        st1, m, _ = out[label]
-        ops = op_count(cfg, g, N_TICKS, starts[label], st1,
-                       run.total_rounds(m))
-        rows = main[label][0][-1][0].shape[0]   # wire rows, flight included
-        by_bytes = 2 * rows * 4 * g / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / (N_TICKS // CHUNK) / INT32_OPS_PER_S * 1e3
-        return by_bytes, by_ops
-
     per_run = {}
     for label, cfg, g, fl, _ in runs:
-        by_bytes, by_ops = bound(label, cfg, g)
+        r = roofline.roofline(cfg, g, "cuda", CHUNK, recorder.RING if fl
+                              else 0, ops=run_ops(label) / N_TICKS)
+        by_bytes = r["hbm_s_per_tick"] * CHUNK * 1e3
+        by_ops = r["ops_s_per_tick"] * CHUNK * 1e3
         p_ms = plain[label][1]
         leaves = wire(label, cfg, g, fl)   # steady state: the same input
         steady = time_ms(lambda: kernel.kstep(cfg, leaves, 0, CHUNK), 3)
@@ -1361,8 +1584,8 @@ def main() -> int:
         print(f"[7] {label}: per {CHUNK}-tick launch "
               f"{per_run[label]['ms']:.2f} ms (phase 5), {steady:.2f} ms "
               f"(three more from one input); bound by bytes "
-              f"{by_bytes:.4f} ms, by operations {by_ops:.4f} ms",
-              flush=True)
+              f"{by_bytes:.4f} ms, by operations {by_ops:.4f} ms "
+              f"(obs.roofline)", flush=True)
     by_build = {}
     for label, cfg, *_ in runs:
         by_build.setdefault(kernel.flag_name(kernel.features(cfg)),

@@ -16,6 +16,12 @@ Metrics can be held bit-identical to the reference at the same
 - ``core``: the CPU oracle; ``obs.triage``: divergence bisection and the
   oracle differential; ``nemesis.search``: the adversarial search,
   shrinker and reproducers (``scripts/torch_nemesis_search.py``).
+- ``analysis.bytemodel``: the wire's and the resident State's bytes per
+  group, derived and reconciled against ``sim.kernel``'s model.
+- ``obs.manifest`` (run records), ``obs.roofline`` (the H100 bound of a
+  run and its attainment), ``obs.trace`` (timeline spans on every kernel
+  launch, the heartbeat) and ``obs.history`` (the trajectory and its
+  gate, ``scripts/torch_bench_history.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

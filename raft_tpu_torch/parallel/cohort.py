@@ -14,8 +14,9 @@ through the card under the unchanged kernels (the JAX package's
 
 While window i's launches run on the current stream, window i+1's
 host-to-card copy and window i-1's card-to-host copy run on two copy
-streams, ordered with CUDA events; the host waits for window i-1's copy
-back before it allocates the next window, so the card holds at most
+streams, ordered with CUDA events (window i-1's copy back is queued
+before window i's launches); the host waits for that copy before it
+allocates the next window, so the card holds at most
 `kernel._stream_windows(cfg)` windows at rest (`kernel.cohort_hbm_bytes`)
 whatever the fleet's size, and the group ceiling is the host's
 (`kernel.streamed_ceiling_groups`). A window is a column slice of the
@@ -30,6 +31,16 @@ adds into with integer atomics, exact in any order. `kinit` and
 `kfinish` run per window on the card, so the whole fleet's working
 wire never exists there either.
 
+Observability (obs/trace.py): every launch of a window carries a chunk
+span with the window's index (`cohort`), a heartbeat record follows each
+window's last launch (label `cuda-streamed:c<i>`), and, with a tracer
+installed, each window's h2d copy, launches and d2h copy are placed on
+the timeline at their device times, one lane per stream, so the overlap
+shows. A chunk span waits for its launch to end before the host goes on,
+so while tracing the card idles while the host queues the next window;
+window i+1's prefetch and window i-1's copy back still run beside window
+i's launches.
+
 CPU tensors (`device="cpu"`) run the same windows through the plain
 versions, synchronously. The multi-card pipeline (the JAX package's
 `prun_streamed_sharded`) is not ported (ROADMAP.md).
@@ -43,11 +54,15 @@ import time
 import torch
 
 from raft_tpu_torch.config import RaftConfig
+from raft_tpu_torch.obs import trace
 from raft_tpu_torch.obs.recorder import Flight
 from raft_tpu_torch.sim import kernel
 from raft_tpu_torch.sim import state as state_mod
 from raft_tpu_torch.sim.run import Metrics
 from raft_tpu_torch.sim.state import I32, State
+
+# The engine string of a streamed window's launches (its heartbeat label).
+ENGINE = "cuda-streamed"
 
 # Metrics lanes with one value per group (the rest are fleet-wide).
 _PER_GROUP = ("committed", "leaderless", "safety", "client_acked",
@@ -127,14 +142,14 @@ def host_wire(cfg: RaftConfig, st: State | None,
     return HostWire(windows, blocks, acc, g, ring, device)
 
 
-def _launches(cfg, leaves, t0: int, n_ticks: int, chunk: int):
-    """The window's launches: `n_ticks` ticks in chunks of `chunk`."""
-    at, n = t0, 0
-    while at < t0 + n_ticks:
-        step = min(chunk, t0 + n_ticks - at)
-        leaves = kernel.kstep(cfg, leaves, at, step)
-        at, n = at + step, n + 1
-    return leaves, n
+def _launches(cfg, leaves, t0: int, n_ticks: int, chunk: int, ci: int,
+              g: int):
+    """Window `ci`'s launches (`kernel.krun`, each in a chunk span with
+    the window's index): `n_ticks` ticks in chunks of `chunk`, then a
+    heartbeat over its `g` groups. Returns (leaves, launches)."""
+    leaves = kernel.krun(cfg, leaves, t0, n_ticks, chunk, cohort=ci)
+    trace.heartbeat_wire(f"{ENGINE}:c{ci}", t0 + n_ticks, cfg, leaves, g)
+    return leaves, -(-n_ticks // chunk)
 
 
 def stream_ticks(cfg: RaftConfig, hw: HostWire, t0: int, n_ticks: int,
@@ -161,17 +176,20 @@ def stream_ticks(cfg: RaftConfig, hw: HostWire, t0: int, n_ticks: int,
     else:
         t_h2d = t_compute = t_d2h = 0.0
         launches = 0
-        for block in hw.blocks:
+        for ci, (block, (s0, s1)) in enumerate(zip(hw.blocks, hw.windows)):
             tic = time.perf_counter()
-            cur = block.to(hw.device, copy=True)
+            with trace.span(f"h2d c{ci}"):
+                cur = block.to(hw.device, copy=True)
             t_h2d += time.perf_counter() - tic
             tic = time.perf_counter()
-            (cur, hw.acc), n = _launches(cfg, (cur, hw.acc), t0, n_ticks,
-                                         chunk)
+            with trace.span(f"compute c{ci}"):
+                (cur, hw.acc), n = _launches(cfg, (cur, hw.acc), t0,
+                                             n_ticks, chunk, ci, s1 - s0)
             launches += n
             t_compute += time.perf_counter() - tic
             tic = time.perf_counter()
-            block.copy_(cur)
+            with trace.span(f"d2h c{ci}"):
+                block.copy_(cur)
             t_d2h += time.perf_counter() - tic
     wall = time.perf_counter() - wall0
     if stats is not None:
@@ -186,13 +204,22 @@ def stream_ticks(cfg: RaftConfig, hw: HostWire, t0: int, n_ticks: int,
 
 
 def _stream_card(cfg, hw: HostWire, t0: int, n_ticks: int, chunk: int):
-    """The card's pipeline: (h2d s, compute s, d2h s, launches)."""
+    """The card's pipeline: (h2d s, compute s, d2h s, launches). With a
+    tracer installed, each window's h2d copy, launches and d2h copy
+    become a span at its device time, on one lane per stream."""
     dev = hw.device
     comp = torch.cuda.current_stream(dev)
     up, down = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
 
     def event():
         return torch.cuda.Event(enable_timing=True)
+
+    tracer = trace.get_tracer()
+    if tracer is not None:   # the clock that places the streams' events
+        ref = event()
+        ref.record(comp)
+        ref.synchronize()
+        ref_us = tracer.now_us()
 
     def h2d(i):
         # Allocated on the compute stream; the copy stream waits for the
@@ -220,26 +247,36 @@ def _stream_card(cfg, hw: HostWire, t0: int, n_ticks: int, chunk: int):
     launches = 0
     nxt = h2d(0)
     pending = None   # (window, its result, the end of its launches)
-    for i in range(len(hw.blocks)):
+    for i, (s0, s1) in enumerate(hw.windows):
         cur, (_, loaded) = nxt
         spans["h2d"].append(nxt[1])
         if i + 1 < len(hw.blocks):
             nxt = h2d(i + 1)                       # prefetch i + 1
         comp.wait_event(loaded)
+        if pending is not None:
+            spans["d2h"].append(d2h(*pending))     # drain i - 1
         c0, c1 = event(), event()
         c0.record(comp)
-        (cur, hw.acc), n = _launches(cfg, (cur, hw.acc), t0, n_ticks, chunk)
+        (cur, hw.acc), n = _launches(cfg, (cur, hw.acc), t0, n_ticks, chunk,
+                                     i, s1 - s0)
         launches += n
         c1.record(comp)
         spans["compute"].append((c0, c1))
         if pending is not None:
-            spans["d2h"].append(d2h(*pending))     # drain i - 1
             spans["d2h"][-1][1].synchronize()
         pending = (i, cur, c1)
         del cur
     spans["d2h"].append(d2h(*pending))
     del pending
     torch.cuda.synchronize(dev)
+    if tracer is not None:
+        for lane, kind in enumerate(("h2d", "compute", "d2h")):
+            tid = 0x7FFF0000 + lane
+            tracer.lane(tid, f"{ENGINE} {kind} stream")
+            for i, (a, b) in enumerate(spans[kind]):
+                tracer.complete(f"{kind} c{i}",
+                                ref_us + 1e3 * ref.elapsed_time(a),
+                                1e3 * a.elapsed_time(b), tid, cohort=i)
     secs = [sum(a.elapsed_time(b) for a, b in spans[k]) / 1e3
             for k in ("h2d", "compute", "d2h")]
     return (*secs, launches)

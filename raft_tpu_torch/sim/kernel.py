@@ -3,8 +3,11 @@ state in shared memory for the whole launch and one lane per Raft node
 (csrc/fused_chunk.cu), with the JAX package's
 `sim/pkernel.py` API — `kinit` / `kstep` / `kfinish` / `prun`, and
 `kcommitted` / `kelections` / `khist` / `kreads` / `kacked` /
-`kretries` / `kflight` on the wire form — and its packed wire codec
-(csrc/wire_codec.cu) and byte model.
+`kretries` / `kflight` / `klane` on the wire form — and its packed wire
+codec (csrc/wire_codec.cu) and byte model. `krun` is the chunked launch
+loop every driver shares: it puts an `obs.trace` chunk span on each
+launch and a heartbeat after it (no-ops unless installed); the codec
+wrappers put a span on each of their launches.
 
 The wire form is a pair of tensors, `(wire, acc)`:
 - `wire`: int32, every State leaf plus the per-group metric lanes
@@ -89,6 +92,7 @@ from raft_tpu_torch.clients.state import (ADMISSION_LEAVES, CLIENT_LEAVES,
                                           ClientState, active_client_leaves)
 from raft_tpu_torch.config import NARROW_FIELDS, RaftConfig
 from raft_tpu_torch.obs import recorder
+from raft_tpu_torch.obs import trace
 from raft_tpu_torch.obs.recorder import FLIGHT_LEAVES, Flight
 from raft_tpu_torch.sim import run as run_mod
 from raft_tpu_torch.sim import state as state_mod
@@ -763,9 +767,10 @@ def unpack_wire(cfg: RaftConfig, packed: torch.Tensor,
                  g)
     _codec_check("the working wire", out, n_work, g)
     plan = _codec_plan(cfg, ring)
-    rc = load_codec().wire_unpack_launch(
-        packed.data_ptr(), out.data_ptr(), plan.ctypes.data, len(plan), g,
-        torch.cuda.current_stream(packed.device).cuda_stream)
+    with trace.launch_span("wire_unpack cuda", packed.device, groups=g):
+        rc = load_codec().wire_unpack_launch(
+            packed.data_ptr(), out.data_ptr(), plan.ctypes.data, len(plan),
+            g, torch.cuda.current_stream(packed.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wire_unpack launch failed: error {rc}")
     unpack_wire.launches += 1
@@ -804,9 +809,10 @@ def pack_wire(cfg: RaftConfig, wire: torch.Tensor,
         # the RING_BASE row: bit 31 of each word is a group's flag
         flags = flags_from[_rest_at(cfg, ring)[RING_BASE][0]].data_ptr()
     plan = _codec_plan(cfg, ring)
-    rc = load_codec().wire_pack_launch(
-        wire.data_ptr(), out.data_ptr(), flags, plan.ctypes.data, len(plan),
-        g, torch.cuda.current_stream(wire.device).cuda_stream)
+    with trace.launch_span("wire_pack cuda", wire.device, groups=g):
+        rc = load_codec().wire_pack_launch(
+            wire.data_ptr(), out.data_ptr(), flags, plan.ctypes.data,
+            len(plan), g, torch.cuda.current_stream(wire.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wire_pack launch failed: error {rc}")
     pack_wire.launches += 1
@@ -901,14 +907,21 @@ def kflight(cfg: RaftConfig, leaves, g: int) -> Flight | None:
                     for f in _FLIGHT))
 
 
-def _lane_sum(cfg: RaftConfig, leaves, g: int, field: str) -> int:
-    """The int64 sum of one field's rows over the first g groups."""
+def klane(cfg: RaftConfig, leaves, g: int, field: str) -> torch.Tensor:
+    """One field's rows of the wire at rest over the first g groups
+    (`[rows, g]`, int32, a view): a metric lane such as "leaderless" or
+    "safety" is one row."""
     wire = leaves[0]
     at = _rest_at(cfg, _ring_of(cfg, wire)).get(field)
     if at is None:
         raise ValueError(f"the universe's wire carries no {field}")
     s, n = at
-    return int(wire[s:s + n, :g].to(torch.int64).sum())
+    return wire[s:s + n, :g]
+
+
+def _lane_sum(cfg: RaftConfig, leaves, g: int, field: str) -> int:
+    """The int64 sum of one field's rows over the first g groups."""
+    return int(klane(cfg, leaves, g, field).to(torch.int64).sum())
 
 
 def kcommitted(cfg: RaftConfig, leaves, g: int) -> int:
@@ -1097,8 +1110,12 @@ def build(flag_sets, codec: bool = False) -> dict:
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     failed = []
+    with trace.span(f"nvcc {len(procs)} builds", keys=[
+            CODEC if k == CODEC else flag_name(k) for k in procs]):
+        logs = {key: proc.communicate()[0]
+                for key, (_, _, proc) in procs.items()}
     for key, (so, tmp, proc) in procs.items():
-        log = proc.communicate()[0]
+        log = logs[key]
         if proc.returncode == 0:
             so.with_suffix(".ptxas.txt").write_text(log)
             os.replace(tmp, so)
@@ -1119,7 +1136,8 @@ def load(flags: tuple) -> ctypes.CDLL:
     """The tick kernel built for one flag set (compiled at first use),
     loaded once per process."""
     build([flags])
-    lib = ctypes.CDLL(str(_so_path(flags)))
+    with trace.span(f"load fused_chunk_{flag_name(flags)}"):
+        lib = ctypes.CDLL(str(_so_path(flags)))
     fn = lib.fused_chunk_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                                            ctypes.c_int, ctypes.c_void_p,
@@ -1138,7 +1156,8 @@ def load_codec() -> ctypes.CDLL:
     """The codec kernels (compiled at first use), loaded once per
     process."""
     build([], codec=True)
-    lib = ctypes.CDLL(str(_so_path(CODEC)))
+    with trace.span("load wire_codec"):
+        lib = ctypes.CDLL(str(_so_path(CODEC)))
     lib.wire_unpack_launch.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.wire_pack_launch.argtypes = [ctypes.c_void_p] * 4 + [
@@ -1202,16 +1221,20 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
         raise ValueError("ticks must lie in [0, 2**31)")
     lib = load(features(cfg))
     g, ring = wire.shape[1], _ring_of(cfg, wire)
-    acc_out = acc if cfg.alias_wire else acc.clone()
+    # The outputs (none under alias_wire); a span, as the allocator may
+    # stall the host here for a new device segment.
+    with trace.span("kstep alloc", groups=g):
+        acc_out = acc if cfg.alias_wire else acc.clone()
+        fresh = None if cfg.alias_wire else torch.empty_like(wire)
     if packs(cfg):
         # The working wire the tick kernel runs on in place, and the
         # output at rest (the input itself under alias_wire).
         work, wire_in = unpack_wire(cfg, wire), None
-        out = wire if cfg.alias_wire else torch.empty_like(wire)
+        out = wire if cfg.alias_wire else fresh
     elif cfg.alias_wire:   # in place on the input: no copy, no aliasing
         work, wire_in = wire, None
     else:
-        work, wire_in = torch.empty_like(wire), wire
+        work, wire_in = fresh, wire
     offs, params, nem = _launch_args(cfg, g, _hist_size(cfg, acc), ring,
                                      int(t0), int(n_ticks))
     table = _nem_table(cfg, wire.device)
@@ -1233,13 +1256,39 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
 kstep.launches = 0
 
 
+def krun(cfg: RaftConfig, leaves, t0: int, n_ticks: int,
+         chunk_ticks: int | None = None, label: str | None = None,
+         **span_args):
+    """The chunked launch loop every driver shares: `n_ticks` ticks from
+    tick `t0` in `kstep` launches of `chunk_ticks` ticks (default: one
+    launch), each inside an `obs.trace.chunk_span` (`span_args` added to
+    its args) and, with a `label`, followed by an
+    `obs.trace.heartbeat_wire` at the launch's last tick. Both are
+    no-ops unless a tracer or heartbeat is installed. Returns the wire
+    pair after the ticks (under `alias_wire`, the input pair written
+    over)."""
+    engine = "cuda" if leaves[0].device.type == "cuda" else "plain"
+    chunk = chunk_ticks or n_ticks
+    at, end = int(t0), int(t0) + int(n_ticks)
+    while at < end:
+        step = min(chunk, end - at)
+        with trace.chunk_span(engine, at, step, leaves[0].device,
+                              **span_args):
+            leaves = kstep(cfg, leaves, at, step)
+        at += step
+        if label is not None:
+            trace.heartbeat_wire(label, at, cfg, leaves, leaves[0].shape[1])
+    return leaves
+
+
 def prun(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0,
          metrics: Metrics | None = None, flight: Flight | None = None):
     """Drop-in for `run.run` (for `recorder.run_recorded` with a
     `flight`: then a (State, Metrics, Flight) triple comes back): one
-    launch between the two conversions. For chunked loops use
-    kinit/kstep/kfinish directly."""
+    launch between the two conversions, with its chunk span and a
+    heartbeat labelled "prun" (`krun`). For chunked loops use kinit,
+    `krun` and kfinish."""
     leaves, g = kinit(cfg, st, metrics, flight)
-    leaves = kstep(cfg, leaves, t0, n_ticks)
+    leaves = krun(cfg, leaves, t0, n_ticks, label="prun")
     st, m = kfinish(cfg, leaves, g, metrics)
     return (st, m) if flight is None else (st, m, kflight(cfg, leaves, g))
