@@ -116,15 +116,29 @@ launch counts set to 0 just before it and read just after:
    `--obs-dir DIR` to DIR. The same Tracer also records phases 2-5 (the
    builds, the library loads, every plain and kernel chunk with the
    allocator's cudaMalloc, cudaFree and retry counts in its args) and
-   every garbage collection into that trace; phases 6 and (a)-(h) run
-   untraced;
+   every garbage collection into that trace; phases 6, (a)-(h) and (j)
+   run untraced;
+(j) the multi-device drivers (parallel/mesh.py, kmesh.py,
+   stream_sched.py and cohort.py's sharded half), each run's launch
+   counts set to 0 just before it and read just after, every comparison
+   on the card: the mesh of every visible card runs the headline's first
+   200-tick chunk (equal to phase 5's, `kglobal_sharded` equal to its
+   counters); three shards on the one card run it in 2 x 100-tick
+   launches; the clients run (flight ring on) over two shards; phase
+   (f)'s packed million through `prun_streamed_sharded` over two shards
+   (equal to (f)'s result, with its per-device split and overlap beside
+   (f)'s); `kernel.supported` refuses two shards on the card that fit
+   alone but not together; and a line says whether the two-card check
+   of tests/test_torch_kernel_cuda.py could run (it needs two cards);
 7. a `kernels` JSON line: launches, times and bound of the fused chunk
    and the two codec kernels, and the same for each flag set's build by
    run (with each run's steady-state time: three launches more from its
    start, CUDA events), with the build's ptxas numbers and each run's
-   block shape. Every bound comes from `obs.roofline` (bytes from
-   `analysis.bytemodel`, operations from `roofline.run_ops`); phase (e)
-   also requires `bytemodel.byte_model_problems()` to be empty.
+   block shape, and phase (j)'s launches and ms per sharded launch
+   beside phase 5's of the same chunk. Every bound comes from
+   `obs.roofline` (bytes from `analysis.bytemodel`, operations from
+   `roofline.run_ops`); phase (e) also requires
+   `bytemodel.byte_model_problems()` to be empty.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -960,6 +974,228 @@ def observability(dev, power_w, obs_dir, tracer, by_label, wire, main,
             "spans": n_spans, "runs": report}
 
 
+def to_host(tree):
+    """A (State, Metrics[, Flight]) tree copied to host memory."""
+    from raft_tpu_torch.sim import state
+    return tuple(state._map_named(t, "", lambda _, a: a.cpu()) for t in tree)
+
+
+def trees_err_on(dev, got, host_ref) -> int:
+    """max_abs_err of `got` (on `dev`) against a host copy, compared on
+    `dev` one leaf at a time."""
+    worst = 0
+    for x, y in zip(_leaves(got), _leaves(host_ref)):
+        worst = max(worst, words_err(x.to(torch.int64),
+                                     y.to(dev).to(torch.int64)))
+    return worst
+
+
+def multi_device(dev, by_label, starts, main, f_out):
+    """Phase (j): the multi-device drivers (parallel/mesh.py, kmesh.py,
+    stream_sched.py, cohort.py's sharded half) on the card, each run's
+    launch counts set to 0 just before it and read just after, every
+    comparison on the card at max abs err 0:
+
+    - (j1) the mesh of every visible card (`make_mesh()`) runs the
+      headline's first chunk (`kinit_sharded`, one `kstep_sharded` of
+      200 ticks, `kfinish_sharded`): equal to phase 5's first chunk, and
+      `kglobal_sharded` equal to its `kcommitted`, `kelections`, `khist`,
+      longest streak and safety;
+    - (j2) three shards on the one card (`[cuda:0] * 3`, 33,334 / 33,334
+      / 33,332 groups) run it in 2 x 100-tick launches
+      (`prun_sharded`): equal to phase 5's first chunk;
+    - (j3) the clients run (50,000 groups, flight ring on) over two
+      shards, one 200-tick launch: equal to phase 5's first chunk,
+      Flight included;
+    - (j4) phase (f)'s packed million through `prun_streamed_sharded`
+      over two shards on the card: equal to (f)'s result; its rounds/s,
+      per-device split and overlap beside (f)'s;
+    - (j5) `kernel.supported` refuses two shards on the card whose
+      launches together exceed its budget though each alone fits, and
+      prints the resident ceiling over two cards of that budget (the
+      first card gathers and finishes the whole fleet);
+    - (j6) the two-card check (each launch on its tensor's card, the
+      plan cache by card: tests/test_torch_kernel_cuda.py) runs only
+      with two cards: one line says whether it could.
+
+    Returns {"launches": {run: {kernel: n}}, "ms": {run: ms per sharded
+    launch}, "single_ms": phase 5's ms of the same first chunk}."""
+    from raft_tpu_torch.obs import recorder
+    from raft_tpu_torch.parallel import cohort, kmesh
+    from raft_tpu_torch.parallel.mesh import make_mesh, placement
+    from raft_tpu_torch.sim import kernel, run, state
+
+    report = {"launches": {}, "ms": {}, "new_segments_retries": []}
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+
+    def segments():
+        stats = torch.cuda.memory_stats(dev)
+        return stats["segment.all.allocated"], stats["num_alloc_retries"]
+
+    def sharded(cfg, st, mesh, ticks, chunk, flight=None):
+        """kinit_sharded, kstep_sharded launches of `chunk` ticks timed by
+        CUDA events on the current stream (which waits for every
+        shard), then (shards, ms per launch); the caching allocator's
+        new segments and retries in each launch go to `report`."""
+        shards, g = kmesh.kinit_sharded(cfg, st, mesh, flight=flight)
+        ms, new = [], []
+        for at in range(0, ticks, chunk):
+            e0, e1 = events()
+            before = segments()
+            e0.record()
+            shards = kmesh.kstep_sharded(cfg, shards, at, chunk, mesh)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            new.append([b - a for a, b in zip(before, segments())])
+        report["new_segments_retries"].append(new)
+        return shards, g, ms
+
+    # (j1) the mesh of every visible card
+    _, cfg, g, _, _ = by_label["headline"]
+    head = main["headline"][0][0]
+    mesh = make_mesh()
+    st0 = starts["headline"]
+    reset_counts(kernel)
+    shards, g1, ms = sharded(cfg, st0, mesh, CHUNK, CHUNK)
+    report["launches"]["j1"] = counts(kernel)
+    gm = kmesh.kglobal_sharded(cfg, shards, g1, mesh)
+    e = max_abs_err(kmesh.kfinish_sharded(cfg, shards, g1),
+                    kernel.kfinish(cfg, head, g))
+    hist = kernel.khist(cfg, head, g)
+    longest = int(kernel.kfinish(cfg, head, g)[1].max_latency)
+    safe = int((kernel.klane(cfg, head, g, "safety")[0] == 0).sum())
+    if e or int(gm.rounds) != kernel.kcommitted(cfg, head, g) \
+            or int(gm.elections) != kernel.kelections(cfg, head, g) \
+            or not (gm.hist.cpu().numpy() == hist).all() \
+            or int(gm.max_latency) != longest or int(gm.unsafe) != safe \
+            or report["launches"]["j1"]["fused_chunk"] != len(mesh):
+        raise AssertionError(f"(j1) mesh of {len(mesh)} card(s): max abs "
+                             f"err {e}, counters {gm.rounds} rounds, "
+                             f"launches {report['launches']['j1']}")
+    report["ms"]["j1"] = ms
+    report["single_ms"] = main["headline"][1][0]
+    print(f"[j1] headline {g} groups over the mesh of every visible card "
+          f"({[str(d) for d in mesh]}): one {CHUNK}-tick sharded launch "
+          f"{ms[0]:.2f} ms (phase 5's chunk: {report['single_ms']:.2f} ms); "
+          f"State and Metrics max abs err 0; kglobal_sharded {int(gm.rounds)}"
+          f" rounds, {int(gm.elections)} elections, longest streak "
+          f"{int(gm.max_latency)}, {int(gm.unsafe)} unsafe: equal to "
+          f"kcommitted/kelections/khist", flush=True)
+    del shards
+
+    # (j2) three shards on the one card, 2 x 100-tick launches
+    mesh = (dev,) * 3
+    reset_counts(kernel)
+    shards, g2, ms = sharded(cfg, st0, mesh, CHUNK, CHUNK // 2)
+    report["launches"]["j2"] = counts(kernel)
+    e = max_abs_err(kmesh.kfinish_sharded(cfg, shards, g2),
+                    kernel.kfinish(cfg, head, g))
+    if e or report["launches"]["j2"]["fused_chunk"] != 6:
+        raise AssertionError(f"(j2) three shards on one card: max abs err "
+                             f"{e}, launches {report['launches']['j2']}")
+    report["ms"]["j2"] = ms
+    print(f"[j2] headline over three shards on one card "
+          f"({[s1 - s0 for _, s0, s1 in placement(g, mesh)]} groups, a "
+          f"stream each): 2 x {CHUNK // 2}-tick sharded launches "
+          f"{[round(x, 2) for x in ms]} ms (sum {sum(ms):.2f}; phase 5's "
+          f"{CHUNK}-tick chunk {report['single_ms']:.2f}); max abs err 0; "
+          f"allocator's new segments, retries by launch "
+          f"{report['new_segments_retries'][-1]}", flush=True)
+    del shards
+
+    # (j3) the clients run, flight ring on, over two shards
+    _, ccfg, gc, fl, _ = by_label["clients"]
+    cst, flight = starts["clients"], recorder.flight_init(gc, device=dev)
+    mesh = (dev,) * 2
+    reset_counts(kernel)
+    shards, g3, ms = sharded(ccfg, cst, mesh, CHUNK, CHUNK, flight)
+    report["launches"]["j3"] = counts(kernel)
+    whole = kmesh.gather(ccfg, shards, dev)
+    ref = main["clients"][0][0]
+    e = max(max_abs_err(kernel.kfinish(ccfg, whole, g3),
+                        kernel.kfinish(ccfg, ref, gc)),
+            max_abs_err(kernel.kflight(ccfg, whole, g3),
+                        kernel.kflight(ccfg, ref, gc)))
+    if e or report["launches"]["j3"]["fused_chunk"] != 2:
+        raise AssertionError(f"(j3) clients over two shards: max abs err "
+                             f"{e}, launches {report['launches']['j3']}")
+    report["ms"]["j3"] = ms
+    print(f"[j3] clients {gc} groups over two shards on one card, flight "
+          f"ring on: one {CHUNK}-tick sharded launch {ms[0]:.2f} ms (phase "
+          f"5's chunk {main['clients'][1][0]:.2f}); State, Metrics and "
+          f"Flight max abs err 0", flush=True)
+    del shards, whole, flight
+
+    # (j4) phase (f)'s packed million streamed over two shards
+    f_ref, f_stats = f_out
+    scfg = dataclasses.replace(cfg, pack_bools=True, pack_ring=True,
+                               stream_groups=True,
+                               cohort_blocks=STREAM_BLOCKS)
+    st0 = state.init(cfg, STREAM_GROUPS, device=dev)
+    reset_counts(kernel)
+    stats = {}
+    out = cohort.prun_streamed_sharded(scfg, st0, CHUNK, mesh, stats=stats)
+    torch.cuda.synchronize()
+    report["launches"]["j4"] = counts(kernel)
+    del st0
+    e = trees_err_on(dev, out, f_ref)
+    n_win = len(cohort.cohort_windows(scfg, STREAM_GROUPS, 2))
+    slices = report["launches"]["j4"]["fused_chunk"]
+    if e or stats["cohorts"] != n_win or slices != stats["launches"]:
+        raise AssertionError(f"(j4) the streamed million over two shards: "
+                             f"max abs err {e}, launches "
+                             f"{report['launches']['j4']}, stats {stats}")
+    rounds = run.total_rounds(out[1])
+    report["ms"]["j4"] = 1e3 * stats["compute_s"] / (slices // 2)
+    per = stats["per_device"]
+    per_dev = stats["overlap_efficiency_per_device_measured"]
+    print(f"[j4] streamed {STREAM_GROUPS} groups over two shards on one "
+          f"card, {n_win} windows of {kernel.window_groups(scfg, 2)} "
+          f"({slices} launches): max abs err 0 against (f); "
+          f"{rounds / stats['wall_s']:.1f} rounds/s over the wall "
+          f"((f): {rounds / f_stats['wall_s']:.1f}); per device h2d/"
+          f"compute/d2h s " + "; ".join(
+              f"shard {r['shard']} {r['h2d_s']:.4f}/{r['compute_s']:.4f}/"
+              f"{r['d2h_s']:.4f}" for r in per)
+          + f" ((f): {f_stats['h2d_s']:.4f}/{f_stats['compute_s']:.4f}/"
+          f"{f_stats['d2h_s']:.4f}); wall {stats['wall_s']:.4f} s ((f): "
+          f"{f_stats['wall_s']:.4f}); overlap "
+          f"{stats['overlap_efficiency_measured']:.4f} ((f): "
+          f"{f_stats['overlap_efficiency_measured']:.4f}), per device "
+          f"{[round(x, 4) for x in per_dev]}", flush=True)
+    del out
+
+    # (j5) two shards on one card share its budget
+    card = torch.device("cuda", 0)
+    budget = kernel.hbm_budget(card)
+    top = kernel.hbm_ceiling_groups(cfg, hbm=budget)
+    g5 = 2 * (top * 3 // 4)
+    if not kernel.supported(cfg, g5 // 2, hbm=budget) or kernel.supported(
+            cfg, g5, mesh=(card,) * 2):
+        raise AssertionError(f"(j5) {g5} groups in two shards on one card "
+                             f"of {budget} B: supported is wrong")
+    need = kernel.mesh_hbm_bytes(cfg, g5, (card,) * 2)[card]
+    two = kernel.mesh_ceiling_groups(cfg, (card, torch.device("cuda", 1)),
+                                     hbm=budget)
+    print(f"[j5] supported: two shards of {g5 // 2} groups on one card "
+          f"need {need} B together, more than its budget {budget} B, though "
+          f"each alone fits ({kernel.hbm_bytes(cfg, g5 // 2)} B): refused; "
+          f"over two cards of that budget the resident ceiling is {two} "
+          f"groups (one card's launch: {top}; the first card gathers and "
+          f"finishes the whole fleet)", flush=True)
+
+    # (j6) the two-card check
+    n_cards = torch.cuda.device_count()
+    print(f"[j6] the two-card check (launches on their tensor's card, the "
+          f"plan cache by card) " + ("can run" if n_cards >= 2 else
+                                     "did not run") +
+          f": {n_cards} card(s) visible", flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--obs-dir", default=None,
@@ -1529,6 +1765,7 @@ def main(argv=None) -> int:
           f"prun_streamed {t_str:.2f} s end to end; the resident launch "
           f"{res_ms[0]:.2f} ms, kinit-kstep-kfinish {t_res:.2f} s; launches "
           f"{got}", flush=True)
+    f_out = (to_host(streamed), stats)   # phase (j4)'s reference
     del st0, resident, streamed
 
     # (g) the headline near the resident ceiling (one launch), and
@@ -1560,6 +1797,16 @@ def main(argv=None) -> int:
     obs = observability(dev, power_w, args.obs_dir, tracer, by_label, wire,
                         main, run_ops)
     print(json.dumps({"obs": obs}), flush=True)
+
+    # (j) the multi-device drivers: the mesh of every card, shards on
+    # one card, the sharded streamed million, the per-card budget
+    t = time.time()
+    sharded = multi_device(dev, by_label, starts, main, f_out)
+    del f_out
+    paths["sharded"] = sum(sharded["launches"][k]["fused_chunk"]
+                           for k in ("j1", "j2", "j3", "j4"))
+    print(f"[j] multi-device drivers: {time.time() - t:.1f} s; launches "
+          f"{sharded['launches']}", flush=True)
 
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with
@@ -1599,6 +1846,11 @@ def main(argv=None) -> int:
            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
            "library_ms": None,
            "paths": paths,
+           "sharded": {"launches": sharded["launches"],
+                       "ms_per_launch": sharded["ms"],
+                       "single_device_ms": sharded["single_ms"],
+                       "new_segments_retries":
+                           sharded["new_segments_retries"]},
            "instantiations": [
                {"flags": name, "launches": sum(launches[lb] for lb in labels),
                 "ptxas": ptxas[name],
@@ -1609,17 +1861,18 @@ def main(argv=None) -> int:
          "source": "raft_tpu_torch/csrc/wire_codec.cu",
          "replaces": c["replaces"], "launches": codec_n[name],
          "max_abs_err": codec_err, "ms": c["ms"], "plain_ms": c["plain_ms"],
-         "bound_ms": c["bound_ms"], "bound_by": "bytes", "library_ms": None}
+         "bound_ms": c["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "paths": {"packed": codec_n[name],
+                   "sharded_streamed": sharded["launches"]["j4"][name]}}
         for name, c in codec.items()]
     print(f"[7] memory {json.dumps(memory)}", flush=True)
     print(f"[7] near the ceiling {json.dumps(near)}", flush=True)
     print(f"[7] total {time.time() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": recs}))
-    # The script drives one card, cuda:0.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -11,7 +11,10 @@ Metrics can be held bit-identical to the reference at the same
   behind ``kinit``/``kstep``/``kfinish``/``prun``, with the packed wire's
   codec kernels (``csrc/wire_codec.cu``) and the byte model.
 - ``parallel.cohort``: the fleet's wire in host memory, streamed through
-  one card (``prun_streamed``).
+  one card (``prun_streamed``) or a mesh (``prun_streamed_sharded``);
+  ``parallel.mesh`` / ``parallel.kmesh``: the groups axis sharded over a
+  mesh of devices, one process driving them all (``run_sharded``,
+  ``prun_sharded``).
 - ``sim.checkpoint``: save and load, in the JAX package's file format.
 - ``core``: the CPU oracle; ``obs.triage``: divergence bisection and the
   oracle differential; ``nemesis.search``: the adversarial search,

@@ -23,7 +23,10 @@ must agree exactly:
 2. the tensors `kernel.kinit` returns, element count over groups (and
    the working form `kernel.unpack_wire` makes of them);
 3. `kernel.wire_words_per_group`, `working_words_per_group`,
-   `acc_words` and `hbm_bytes`, and the ceilings built on them.
+   `acc_words` and `hbm_bytes`, and the ceilings built on them, on one
+   card and sharded (`_mesh_ceilings`: over distinct cards, shards
+   sharing one card, both with the whole fleet's gather and finish on
+   the first card, and the streamed pipeline per device).
 
 The resident model (`resident_bytes_model`) prices what one group keeps
 between runs under the narrow dials, four ways. The port carries the
@@ -223,7 +226,8 @@ def derived_wire_model(cfg: RaftConfig, ring: int = 0) -> dict:
         problems.append(f"kernel.hbm_bytes at {n} groups "
                         f"{kernel.hbm_bytes(cfg, n, ring)} != {want} from "
                         f"the derived words")
-    hbm = _ceilings(cfg, ring, launch, residency * acc, rest, problems)
+    hbm = _ceilings(cfg, ring, launch, residency * acc, rest, problems,
+                    dict(residency=residency, acc=acc, work=work))
 
     widened = [r for r in rows if r["kind"] == "state"
                and r["dtype"] == "bool" and r["rest_words"] == r[
@@ -250,7 +254,8 @@ def derived_wire_model(cfg: RaftConfig, ring: int = 0) -> dict:
     }
 
 
-def _ceilings(cfg, ring, launch_words, acc_bytes_words, rest, problems):
+def _ceilings(cfg, ring, launch_words, acc_bytes_words, rest, problems,
+              words):
     """The resident and streamed ceilings at the audit budgets, each the
     exact `supported` boundary and each the one the derived words imply."""
     rcfg = dataclasses.replace(cfg, stream_groups=False)
@@ -278,7 +283,112 @@ def _ceilings(cfg, ring, launch_words, acc_bytes_words, rest, problems):
     return {"audit_hbm_bytes": B, "audit_host_bytes": H,
             "launch_words_per_group": launch_words,
             "ceiling_groups": ceiling, "streamed_ceiling_groups": streamed,
-            "window_hbm_bytes": kernel.cohort_hbm_bytes(scfg, ring)}
+            "window_hbm_bytes": kernel.cohort_hbm_bytes(scfg, ring),
+            "mesh": _mesh_ceilings(cfg, ring, dict(
+                words, launch=launch_words, rest=rest), ceiling, streamed,
+                problems)}
+
+
+# The meshes the audit prices: distinct cards, and shards sharing one.
+AUDIT_MESH_SIZES = (2, 4)
+
+
+def _first_card_bytes(g: int, n: int, shared: bool, w: dict) -> int:
+    """Derived bytes on the first card of a resident run of `g` groups
+    sharded over `n` devices (all on that card when `shared`): the
+    launches it holds, the gather there, and the whole fleet's finish,
+    whichever is largest. The first shard, ceil(g / n) groups, is the
+    largest, so no other card needs more."""
+    step = -(-g // n)
+    spans = [min(step, g - s0) for s0 in range(0, g, step)]
+    launch = [4 * (w["launch"] * s + w["residency"] * w["acc"])
+              for s in spans]
+    here = launch if shared else launch[:1]
+    pair = [4 * (w["rest"] * s + w["acc"]) for s in spans]
+    gather = 0
+    if len(spans) > 1:
+        gather = 4 * (w["rest"] * g + w["acc"]) + (
+            sum(pair) if shared else pair[0] + 4 * w["rest"] * max(spans[1:]))
+    return max(sum(here), gather, w["finish"] * g + w["fleet"])
+
+
+def _derived_boundary(n: int, shared: bool, w: dict, budget: int,
+                      top: int) -> int:
+    """The most groups in [0, top] whose `_first_card_bytes` fit
+    `budget`."""
+    lo, hi = 0, top
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _first_card_bytes(mid, n, shared, w) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _mesh_ceilings(cfg, ring, w, ceiling, streamed, problems):
+    """The sharded forms at the audit budgets, each against the derived
+    words: a resident run over N distinct cards, and over N shards
+    sharing one card, fits while the first card holds its launches and
+    the whole fleet's gather and finish (`_first_card_bytes`, the finish
+    from `resident_bytes_model`'s wide bytes); the exact
+    `supported(mesh=...)` boundary (`kernel.mesh_ceiling_groups`) must be
+    that, and at most N x one card's launch ceiling. The streamed window
+    pipeline holds `stream_blocks_per_device` blocks a card, and the
+    streamed ceiling stays the one host's."""
+    rcfg = dataclasses.replace(cfg, stream_groups=False)
+    scfg = dataclasses.replace(cfg, stream_groups=True)
+    B, H = AUDIT_HBM_BYTES, AUDIT_HOST_BYTES
+    res = resident_bytes_model(cfg, ring)
+    w = dict(w, finish=4 * w["rest"] + (
+        4 * w["work"] if cfg.pack_bools or cfg.pack_ring else 0)
+        + res["resident_bytes_wide"] + (
+            res["state_bytes_narrow"] if state_mod.narrow_active(cfg)
+            else 0),
+        fleet=4 * (w["acc"] + kernel.acc_words(
+            dataclasses.replace(cfg, wire_hist=True))))
+    if kernel.finish_bytes(rcfg, 1000, ring) != w["finish"] * 1000 + w[
+            "fleet"]:
+        problems.append(f"kernel.finish_bytes at 1000 groups "
+                        f"{kernel.finish_bytes(rcfg, 1000, ring)} != "
+                        f"{w['finish'] * 1000 + w['fleet']} from the "
+                        f"derived words (ring={ring})")
+    out = {}
+    for n in AUDIT_MESH_SIZES:
+        cards = [torch.device("cuda", i) for i in range(n)]
+        row = {}
+        for label, mesh, shared in (("ceiling_groups", cards, False),
+                                    ("shared_card_groups", [cards[0]] * n,
+                                     True)):
+            top = kernel.mesh_ceiling_groups(rcfg, mesh, ring, hbm=B)
+            want = _derived_boundary(n, shared, w, B, n * ceiling)
+            exact = (kernel.supported(rcfg, top, ring, hbm=B, mesh=mesh)
+                     and not kernel.supported(rcfg, top + 1, ring, hbm=B,
+                                              mesh=mesh))
+            if top != want or not exact or top > n * ceiling:
+                problems.append(
+                    f"resident ceiling over {n} "
+                    + ("shards on one card" if shared else "cards")
+                    + f" {top} (exact boundary: {exact}) != {want} from "
+                    f"the derived words, or above {n} x {ceiling}")
+            row[label] = top
+        window = kernel.cohort_hbm_bytes(scfg, ring, n)
+        per = -(-cfg.cohort_blocks // n) * kernel.GB
+        # the previous and next slices at rest beside the current launch
+        want_w = 4 * (2 * w["rest"] * per + w["launch"] * per
+                      + w["residency"] * w["acc"])
+        if window != want_w:
+            problems.append(f"streamed window over {n} devices {window} B "
+                            f"!= {want_w} B, one device's pipeline of its "
+                            f"{per}-group slices from the derived words")
+        s_top = kernel.streamed_ceiling_groups(scfg, ring, hbm=B, host=H,
+                                               n_devices=n)
+        if s_top != streamed:
+            problems.append(f"streamed ceiling over {n} devices {s_top} != "
+                            f"the one host's {streamed}")
+        out[n] = dict(row, window_hbm_bytes=window,
+                      streamed_ceiling_groups=s_top)
+    return out
 
 
 def _lane_bytes(met) -> int:

@@ -91,6 +91,7 @@
 // (`hash_fold`). PERF.md records the measured times beside both bounds.
 
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 #include <cuda_runtime.h>
 
@@ -1671,24 +1672,40 @@ struct Plan {
 // The groups per block that let the most groups run at once on an SM (by
 // the occupancy query, the larger block on a tie), for this shape: 0, a
 // CUDA error, or -3 when one group does not fit a block's shared memory.
-// Cached for the last shape asked.
+// A function's attributes (the shared-memory opt-in, the carveout) belong
+// to the context of the device they were set on, so the plans are cached
+// by device as well as by shape: a table of PLAN_SLOTS entries, replaced
+// in turn, so that shards of unequal shapes or on several cards do not
+// evict each other on every launch. The launch runs on the current device.
+constexpr int PLAN_SLOTS = 16;
+
 template <class NM, bool FLIGHT>
 int plan(Args& a, Plan& out) {
-  static Plan cached{};
-  static int key[4] = {-1, -1, -1, -1};
-  const int want[4] = {a.W, a.gs, a.nem_start[N_SEAMS], a.K};
-  if (want[0] == key[0] && want[1] == key[1] && want[2] == key[2] &&
-      want[3] == key[3]) {
-    out = cached;
-    a.ng = out.ng;
-    return 0;
+  struct Slot {
+    int key[5];
+    Plan value;
+  };
+  static Slot table[PLAN_SLOTS];
+  static int used = 0, next = 0;
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int want[5] = {dev, a.W, a.gs, a.nem_start[N_SEAMS], a.K};
+  std::lock_guard<std::mutex> hold(lock);
+  for (int s = 0; s < used; ++s) {
+    bool hit = true;
+    for (int j = 0; j < 5; ++j) hit = hit && table[s].key[j] == want[j];
+    if (hit) {
+      out = table[s].value;
+      a.ng = out.ng;
+      return 0;
+    }
   }
   auto* kern = fused_chunk_kernel<NM, FLIGHT>;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin);
@@ -1709,8 +1726,11 @@ int plan(Args& a, Plan& out) {
       best = Plan{a.W, ng, ng * a.W, static_cast<int>(bytes), nb, nb * ng};
   }
   if (best.ng == 0) return -3;
-  cached = best;
-  for (int j = 0; j < 4; ++j) key[j] = want[j];
+  Slot& slot = table[next];   // the slots fill in order, then in turn
+  next = (next + 1) % PLAN_SLOTS;
+  if (used < PLAN_SLOTS) ++used;
+  for (int j = 0; j < 5; ++j) slot.key[j] = want[j];
+  slot.value = best;
   out = best;
   a.ng = best.ng;
   return 0;

@@ -77,7 +77,8 @@ def peak_host_gbps() -> float:
 
 def engine_class(engine: str | None) -> str:
     """"kernel" for an engine string that starts with "cuda" (the fused
-    chunk, resident or streamed), else "plain" (the PyTorch tick). A
+    chunk: resident, streamed, and sharded as `cuda-sharded-{n}dev` and
+    `cuda-streamed-sharded-{n}dev`), else "plain" (the PyTorch tick). A
     prefix, not a substring: "plain (cuda mismatch!)" names the engine
     that stood, and pricing it as the kernel would overstate its ceiling
     some hundredfold."""
@@ -95,13 +96,17 @@ def _checked(model: dict) -> dict:
 
 
 def tick_byte_model(cfg, n_groups: int, engine: str | None,
-                    chunk_ticks: int | None = None, ring: int = 0) -> dict:
-    """The least device bytes one tick moves under `engine`: the kernel
-    class moves the wire at rest (flight rows included) in and out once
-    per `chunk_ticks`-tick launch at the real group count (the port pads
-    no block); the plain class moves the resident bytes (State under the
+                    chunk_ticks: int | None = None, ring: int = 0,
+                    nd: int = 1) -> dict:
+    """The least device bytes one tick moves under `engine` on each of
+    `nd` devices, the fleet sharded over them (`parallel.groups.spans`:
+    the largest shard, ceil(n_groups / nd) groups): the kernel class
+    moves the wire at rest (flight rows included) in and out once per
+    `chunk_ticks`-tick launch at the real group count (the port pads no
+    block); the plain class moves the resident bytes (State under the
     narrow dials, metric lanes, flight rows) in and out every tick."""
     cls = engine_class(engine)
+    n_groups = -(-n_groups // nd)
     wire = _checked(bytemodel.derived_wire_model(cfg, ring))[
         "wire_bytes_derived"]
     resident = _checked(bytemodel.resident_bytes_model(cfg, ring))[
@@ -120,21 +125,23 @@ def tick_byte_model(cfg, n_groups: int, engine: str | None,
 def roofline(cfg, n_groups: int, engine: str | None,
              chunk_ticks: int | None = None, ring: int = 0,
              measured_ticks_per_sec: float | None = None,
-             ops: float | None = None) -> dict:
-    """The roofline record of one (cfg, groups, engine) point. `ops` is
+             ops: float | None = None, nd: int = 1) -> dict:
+    """The roofline record of one (cfg, groups, engine) point, the groups
+    sharded over `nd` devices (the JAX package's mesh axis: each device's
+    share of the bytes and the operations; the fleet's rounds). `ops` is
     the run's integer operations per tick (`run_ops(...) / n_ticks`);
     None binds by bytes alone. `measured_ticks_per_sec=None` leaves
     `attainment_pct` null."""
-    bm = tick_byte_model(cfg, n_groups, engine, chunk_ticks, ring)
+    bm = tick_byte_model(cfg, n_groups, engine, chunk_ticks, ring, nd)
     hbm, int32 = peak_hbm_gbps(), peak_int32_gops()
     hbm_s = bm["bytes_per_tick"] / (hbm * 1e9)
-    ops_s = ops / (int32 * 1e9) if ops is not None else None
+    ops_s = ops / nd / (int32 * 1e9) if ops is not None else None
     worst = max(hbm_s, ops_s or 0.0)
     predicted = 1.0 / worst
     rounds_per_tick = n_groups * (cfg.cmds_per_tick
                                   + cfg.client_slots * cfg.client_rate)
     return {
-        **bm, "n_groups": n_groups,
+        **bm, "n_groups": n_groups, "nd": nd,
         "ops_per_tick": ops,
         # No counterpart of XLA's scheduled-bytes figure here.
         "xla_bytes_accessed_per_tick": None,
@@ -154,13 +161,14 @@ def segment_fields(cfg, n_groups: int, engine: str | None,
                    ticks: int | None = None,
                    timed_wall_s: float | None = None,
                    chunk_ticks: int | None = None, ring: int = 0,
-                   measured: bool = True, ops: float | None = None) -> dict:
-    """The stamp of one measured run: `ROOFLINE_FIELDS` and the whole
-    derivation under "roofline". `measured=False`, or no `ticks` and
-    `timed_wall_s`, leaves the measured side null."""
+                   measured: bool = True, ops: float | None = None,
+                   nd: int = 1) -> dict:
+    """The stamp of one measured run over `nd` devices: `ROOFLINE_FIELDS`
+    and the whole derivation under "roofline". `measured=False`, or no
+    `ticks` and `timed_wall_s`, leaves the measured side null."""
     mtps = ticks / timed_wall_s if measured and ticks and timed_wall_s \
         else None
-    r = roofline(cfg, n_groups, engine, chunk_ticks, ring, mtps, ops)
+    r = roofline(cfg, n_groups, engine, chunk_ticks, ring, mtps, ops, nd)
     return {"predicted_rounds_per_sec": r["predicted_rounds_per_sec"],
             "attainment_pct": r["attainment_pct"], "bound": r["bound"],
             "roofline": r}
@@ -337,13 +345,6 @@ def live_links(cfg, gid, n_ticks: int) -> int:
 # --------------------------------------------- the streamed pipeline
 
 
-def _one_device(n_devices: int) -> None:
-    if n_devices != 1:
-        raise NotImplementedError(
-            f"raft_tpu_torch streams through one card, not {n_devices}: "
-            f"the sharded pipeline is not ported (ROADMAP.md)")
-
-
 def overlap_efficiency(cfg, chunk_ticks: int | None = None,
                        ticks_per_cohort: int | None = None, ring: int = 0,
                        n_devices: int = 1) -> dict:
@@ -355,22 +356,33 @@ def overlap_efficiency(cfg, chunk_ticks: int | None = None,
     `ticks_per_cohort` ticks (default one `chunk_ticks` launch) of the
     kernel's per-tick byte bound at the window's groups (the operation
     side would only lengthen it, so the prediction is a floor of the
-    overlap). 1.0: the copies hide entirely. One device only."""
-    _one_device(n_devices)
+    overlap). 1.0: the copies hide entirely.
+
+    Over `n_devices` (the JAX package's per-device model) every quantity
+    is one device's: its `stream_blocks_per_device` slice of the window
+    over its own host link, so copy and compute shrink alike and the
+    ratio holds. The model is symmetric, N equal entries; shards that
+    share one card share its link, which it does not model, and the
+    pipeline's measured per-device split (`cohort.stream_ticks`'
+    stats) is what shows a device falling behind."""
     chunk = chunk_ticks or DEFAULT_CHUNK_TICKS
     resident_ticks = ticks_per_cohort or chunk
-    win = kernel.window_groups(cfg)
+    bpd = kernel.stream_blocks_per_device(cfg, n_devices)
+    dev_groups = bpd * kernel.GB
     wire = _checked(bytemodel.derived_wire_model(cfg, ring))[
         "wire_bytes_derived"]
-    window_bytes = wire * win
+    window_bytes = wire * dev_groups
     copy_s = 2.0 * window_bytes / (peak_host_gbps() * 1e9)
     hbm_s = (2.0 * window_bytes / chunk) / (peak_hbm_gbps() * 1e9)
     compute_s = resident_ticks * hbm_s
     eff = compute_s / max(compute_s, copy_s) if copy_s > 0 else 1.0
     return {
         "overlap_efficiency_predicted": eff,
-        "overlap_efficiency_per_device_predicted": [round(eff, 6)],
-        "n_devices": 1, "window_groups": win,
+        "overlap_efficiency_per_device_predicted": [round(eff, 6)]
+        * n_devices,
+        "n_devices": n_devices, "blocks_per_device": bpd,
+        "window_groups": kernel.window_groups(cfg, n_devices),
+        "window_groups_per_device": dev_groups,
         "window_wire_bytes": window_bytes,
         "copy_s_per_window": copy_s, "compute_s_per_window": compute_s,
         "ticks_per_cohort": resident_ticks, "chunk_ticks": chunk,
@@ -382,30 +394,40 @@ def overlap_efficiency(cfg, chunk_ticks: int | None = None,
 def stream_segment_fields(cfg, measured: float | None = None,
                           chunk_ticks: int | None = None,
                           ticks_per_cohort: int | None = None, ring: int = 0,
-                          n_devices: int = 1) -> dict:
+                          n_devices: int = 1,
+                          per_device_measured: list | None = None,
+                          slowest_device=None) -> dict:
     """The stream stamp of a manifest record (`STREAM_KEYS` and
-    `STREAM_MESH_KEYS`): the residency dials, the predicted overlap
-    (under `stream_groups` only) and the measured one (`measured`, the
-    pipeline's `overlap_efficiency_measured`). One device only."""
-    _one_device(n_devices)
+    `STREAM_MESH_KEYS`): the residency dials, the predicted overlap over
+    `n_devices` (under `stream_groups` only) and the measured one
+    (`measured`, the pipeline's `overlap_efficiency_measured`;
+    `per_device_measured` and `slowest_device` from a sharded pipeline's
+    stats, one device's being `measured` itself)."""
     vals = {k: getattr(cfg, k) for k in STREAM_FIELDS}
     pred = per_dev = None
     if cfg.stream_groups:
-        ov = overlap_efficiency(cfg, chunk_ticks, ticks_per_cohort, ring)
+        ov = overlap_efficiency(cfg, chunk_ticks, ticks_per_cohort, ring,
+                                n_devices)
         pred = round(ov["overlap_efficiency_predicted"], 6)
         per_dev = ov["overlap_efficiency_per_device_predicted"]
+        if n_devices == 1:
+            slowest_device = 0
+            if per_device_measured is None and measured is not None:
+                per_device_measured = [round(measured, 6)]
     vals.update(
         overlap_efficiency_predicted=pred,
         overlap_efficiency_measured=(round(measured, 6)
                                      if measured is not None else None),
-        stream_devices=1 if cfg.stream_groups else None,
-        stream_blocks_per_device=(cfg.cohort_blocks if cfg.stream_groups
-                                  else None),
+        stream_devices=n_devices if cfg.stream_groups else None,
+        stream_blocks_per_device=(
+            kernel.stream_blocks_per_device(cfg, n_devices)
+            if cfg.stream_groups else None),
         overlap_efficiency_per_device_predicted=per_dev,
         overlap_efficiency_per_device_measured=(
-            [round(measured, 6)] if measured is not None
-            and cfg.stream_groups else None),
-        stream_slowest_device=0 if cfg.stream_groups else None)
+            list(per_device_measured) if per_device_measured is not None
+            else None),
+        stream_slowest_device=(slowest_device if cfg.stream_groups
+                               else None))
     if set(vals) != set(STREAM_KEYS) | set(STREAM_MESH_KEYS):
         raise RuntimeError(f"obs.manifest STREAM_KEYS + STREAM_MESH_KEYS "
                            f"drifted from the roofline producer {set(vals)}")

@@ -169,13 +169,28 @@ def _load_metrics(z, clients: bool, device) -> Optional[Metrics]:
     return Metrics(**md)
 
 
-def load(path, cfg: Optional[RaftConfig] = None, device="cuda"
+def load(path, cfg: Optional[RaftConfig] = None, device="cuda", mesh=None
          ) -> Tuple[State, int, Optional[Metrics]]:
     """Read (state, tick, metrics-or-None) from `path` onto `device`.
 
     If `cfg` is given and the file embeds one, they must match in every
     semantic field (a `ValueError` names the difference), and the State
-    is re-declared at the cfg's narrow or wide dtypes."""
+    is re-declared at the cfg's narrow or wide dtypes.
+
+    With `mesh` (`parallel.mesh.make_mesh`), the State comes back as its
+    shards, shard j on `mesh[j]` (`parallel.mesh.shard_state`), and the
+    metrics whole on the mesh's first device: a file written by a run on
+    one device continues sharded (the JAX package's `sharding=`), as the
+    file holds no device layout and `State.group_id` travels with each
+    shard. The drivers of `parallel.kmesh` and `parallel.mesh` take the
+    shards as they are."""
+    if mesh is not None:
+        from raft_tpu_torch.parallel.mesh import make_mesh, shard_state
+        mesh = make_mesh(devices=mesh)
+        st, t, metrics = load(path, cfg, device="cpu")
+        return (shard_state(st, mesh), t,
+                None if metrics is None else state_mod._map_named(
+                    metrics, "", lambda _, a: a.to(mesh[0])))
     device = torch.device(device)
     with np.load(path) as z:
         version = int(z["__version__"])

@@ -66,11 +66,16 @@ one flag-free build (`load_codec`). A build runs `nvcc` at first use,
 into a directory git ignores, and is bound through ctypes.
 
 The byte model (`hbm_bytes`, `hbm_ceiling_groups`, `host_bytes`,
-`cohort_hbm_bytes`, `streamed_ceiling_groups`, `supported`) counts the
-port's own wire and launch: a launch holds the wire at rest once under
+`cohort_hbm_bytes`, `streamed_ceiling_groups`, `finish_bytes`,
+`mesh_hbm_bytes`, `mesh_ceiling_groups`, `supported`) counts the port's
+own wire and launch: a launch holds the wire at rest once under
 `alias_wire` (else an input and an output copy), plus, when a packing
 dial is on, the full-width working wire (the double buffer lives in
-shared memory). The budgets are the memory free now, less a margin.
+shared memory). The budgets are the memory free now,
+less a margin, per card: a run sharded over a mesh (`parallel/kmesh.py`,
+`parallel/cohort.py`) fits when each card holds every shard placed on it,
+and a resident one when its first card also holds the whole fleet's
+gather and finish.
 """
 
 from __future__ import annotations
@@ -358,7 +363,8 @@ def launch_words_per_group(cfg: RaftConfig, ring: int = 0) -> int:
 def hbm_bytes(cfg: RaftConfig, n_groups: int, ring: int = 0) -> int:
     """Peak device bytes of one `kstep` over `n_groups` groups, its input
     included: `launch_words_per_group` per group and the accumulators
-    (written over under alias_wire, else copied)."""
+    (written over under alias_wire, else copied). Sharded, by device:
+    `mesh_hbm_bytes`."""
     return 4 * (launch_words_per_group(cfg, ring) * n_groups
                 + _residency(cfg) * acc_words(cfg))
 
@@ -386,7 +392,8 @@ def host_budget() -> int:
 def hbm_ceiling_groups(cfg: RaftConfig, ring: int = 0,
                        hbm: int | None = None) -> int:
     """The most groups one resident `kstep` fits in `hbm` bytes (default:
-    `hbm_budget()`): the exact boundary of `hbm_bytes`."""
+    `hbm_budget()`): the exact boundary of `hbm_bytes`. A sharded run's
+    is `mesh_ceiling_groups`."""
     budget = hbm_budget() if hbm is None else hbm
     spare = budget - 4 * _residency(cfg) * acc_words(cfg)
     return max(0, spare // (4 * launch_words_per_group(cfg, ring)))
@@ -400,9 +407,32 @@ def state_bytes_per_group(cfg: RaftConfig, ring: int = 0) -> int:
     st = state_mod.init(cfg, 1, device="cpu")   # narrow when its dials are
     leaves = []
     state_mod._map_named(st, "", lambda _, a: leaves.append(a))
-    lanes = 5 if cfg.clients_u32 else 3   # committed, leaderless, safety
     return (sum(a.numel() * a.element_size() for a in leaves)
-            + 4 * lanes + 4 * len(_FLIGHT) * ring)
+            + 4 * _lanes(cfg) + 4 * len(_FLIGHT) * ring)
+
+
+def _lanes(cfg: RaftConfig) -> int:
+    """The per-group metric lanes: committed, leaderless, safety (and
+    client_acked, client_retries with clients)."""
+    return 5 if cfg.clients_u32 else 3
+
+
+def finish_bytes(cfg: RaftConfig, n_groups: int, ring: int = 0) -> int:
+    """Peak device bytes of `kfinish` and `kflight` of a wire pair of
+    `n_groups` groups, the pair included: the wire at rest and `acc`, the
+    working wire `unpack_wire` makes beside them under a packing dial,
+    and what the decode holds at once: the wide State, the metric lanes
+    and the flight rows (`state_bytes_per_group` of the wide config),
+    under the narrow dials the narrow State beside them (counted whole,
+    a bound: the leaves it keeps wide are shared), and the fleet-wide
+    metrics."""
+    per = (4 * wire_words_per_group(cfg, ring)
+           + (4 * working_words_per_group(cfg, ring) if packs(cfg) else 0)
+           + state_bytes_per_group(_wide(cfg), ring))
+    if state_mod.narrow_active(cfg):
+        per += state_bytes_per_group(cfg) - 4 * _lanes(cfg)
+    fleet = acc_words(dataclasses.replace(cfg, wire_hist=True))
+    return per * n_groups + 4 * (acc_words(cfg) + fleet)
 
 
 def host_bytes(cfg: RaftConfig, n_groups: int, ring: int = 0,
@@ -416,9 +446,29 @@ def host_bytes(cfg: RaftConfig, n_groups: int, ring: int = 0,
     return per * n_groups
 
 
-def window_groups(cfg: RaftConfig) -> int:
-    """Groups of one cohort window: `cohort_blocks` blocks of `GB`."""
-    return cfg.cohort_blocks * GB
+def stream_blocks_per_device(cfg: RaftConfig, n_devices: int = 1) -> int:
+    """Whole blocks of one cohort window that land on each of `n_devices`
+    devices: `cohort_blocks` split over them, rounded up (the JAX
+    package's `pkernel.stream_blocks_per_device`)."""
+    return -(-cfg.cohort_blocks // n_devices)
+
+
+def window_groups(cfg: RaftConfig, n_devices: int = 1) -> int:
+    """Groups of one cohort window: `cohort_blocks` blocks of `GB`; over
+    `n_devices`, `stream_blocks_per_device` blocks for each."""
+    return stream_blocks_per_device(cfg, n_devices) * n_devices * GB
+
+
+def window_slices(s0: int, s1: int, n_devices: int) -> list:
+    """[(j, lo, hi), ...]: device j's groups of the window [s0, s1),
+    relative to the window: ceil((s1 - s0) / (n_devices x GB)) whole
+    blocks each, in device order, the last clipped to the window; a
+    device left with none is not listed (the JAX package pads the tail
+    window to whole blocks on every device and drops nothing but pad)."""
+    n = s1 - s0
+    per = -(-n // (n_devices * GB)) * GB
+    return [(j, j * per, min((j + 1) * per, n)) for j in range(n_devices)
+            if j * per < n]
 
 
 def _stream_windows(cfg: RaftConfig) -> int:
@@ -428,11 +478,14 @@ def _stream_windows(cfg: RaftConfig) -> int:
     return 2 + _residency(cfg)
 
 
-def cohort_hbm_bytes(cfg: RaftConfig, ring: int = 0) -> int:
+def cohort_hbm_bytes(cfg: RaftConfig, ring: int = 0,
+                     n_devices: int = 1) -> int:
     """Peak device bytes of the streamed pipeline: the previous and the
     next window at rest beside the current window's launch
-    (`hbm_bytes`), O(cohort_blocks) whatever the fleet's size."""
-    win = window_groups(cfg)
+    (`hbm_bytes`), O(cohort_blocks) whatever the fleet's size. Over
+    `n_devices`, one device's pipeline of its window slices
+    (`stream_blocks_per_device` blocks)."""
+    win = stream_blocks_per_device(cfg, n_devices) * GB
     return (4 * (_stream_windows(cfg) - _residency(cfg))
             * wire_words_per_group(cfg, ring) * win
             + hbm_bytes(cfg, win, ring))
@@ -441,14 +494,16 @@ def cohort_hbm_bytes(cfg: RaftConfig, ring: int = 0) -> int:
 def streamed_ceiling_groups(cfg: RaftConfig, ring: int = 0,
                             hbm: int | None = None,
                             host: int | None = None,
-                            state_on_host: bool = True) -> int:
+                            state_on_host: bool = True,
+                            n_devices: int = 1) -> int:
     """The most groups a streamed run fits: `host_bytes` per group in
-    `host` bytes (default: `host_budget()`), in whole windows' blocks;
-    0 when one window's pipeline does not fit `hbm` (default:
-    `hbm_budget()`)."""
+    `host` bytes (default: `host_budget()`), in whole blocks; 0 when one
+    device's window pipeline (over `n_devices` cards, each its own) does
+    not fit `hbm` (default: `hbm_budget()`). One process on one host
+    keeps the whole fleet's wire, so more cards do not raise it."""
     hbm = hbm_budget() if hbm is None else hbm
     host = host_budget() if host is None else host
-    if cohort_hbm_bytes(cfg, ring) > hbm:
+    if cohort_hbm_bytes(cfg, ring, n_devices) > hbm:
         return 0
     return host // (host_bytes(cfg, GB, ring, state_on_host)) * GB
 
@@ -460,24 +515,106 @@ def shape_supported(cfg: RaftConfig) -> bool:
     return cfg.k <= K_LIMIT and shared_bytes(cfg) <= SMEM_PER_BLOCK
 
 
+def _device(d) -> torch.device:
+    """A mesh entry as a device; a CUDA device without an index names the
+    current card."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def mesh_hbm_bytes(cfg: RaftConfig, n_groups: int, mesh,
+                   ring: int = 0) -> dict:
+    """{device: bytes} of a run sharded over `mesh` (a sequence of
+    devices, which may repeat). Under `stream_groups`, on each device the
+    sum over the shards it holds of each shard's window pipeline
+    (`cohort_hbm_bytes` over the mesh). Resident (`parallel.kmesh`
+    `prun_sharded`), on each device the sum of the launches (`hbm_bytes`
+    of each span, `parallel.groups.spans`) of the shards it holds, and on
+    the first device the largest of that and the run's two ends there:
+    the gather (`kmesh.gather`: the whole wire pair beside the wire pairs
+    of the shards that device holds, and the copy of the largest shard
+    another device holds; none for one shard) and then, the shards
+    dropped, `finish_bytes` of the whole fleet."""
+    from raft_tpu_torch.parallel.groups import spans
+    if cfg.stream_groups:
+        first = min(n_groups, window_groups(cfg, len(mesh)))
+        held = [j for j, _, _ in window_slices(0, first, len(mesh))]
+        each = [cohort_hbm_bytes(cfg, ring, len(mesh))] * len(held)
+    else:
+        parts = spans(n_groups, len(mesh))
+        held = range(len(parts))
+        each = [hbm_bytes(cfg, s1 - s0, ring) for s0, s1 in parts]
+    need = {}
+    for j, b in zip(held, each):
+        d = _device(mesh[j])
+        need[d] = need.get(d, 0) + b
+    if cfg.stream_groups:
+        return need
+    first, rest, pair = _device(mesh[0]), 4 * wire_words_per_group(
+        cfg, ring), 4 * acc_words(cfg)
+    gather = 0
+    if len(parts) > 1:
+        here = [_device(mesh[j]) == first for j in held]
+        gather = rest * n_groups + pair + sum(
+            rest * (s1 - s0) + pair
+            for (s0, s1), h in zip(parts, here) if h) + rest * max(
+            (s1 - s0 for (s0, s1), h in zip(parts, here) if not h),
+            default=0)
+    need[first] = max(need[first], gather,
+                      finish_bytes(cfg, n_groups, ring))
+    return need
+
+
+def mesh_ceiling_groups(cfg: RaftConfig, mesh, ring: int = 0,
+                        hbm: int | None = None) -> int:
+    """The most groups a resident run sharded over `mesh` fits with every
+    device's `mesh_hbm_bytes` in `hbm` bytes (default: `hbm_budget()` of
+    the current card, for each device): the exact boundary of
+    `supported(mesh=...)`. At most len(mesh) x `hbm_ceiling_groups` (the
+    launches alone, one shard a card); the first device's gather and
+    finish, which hold the whole fleet, bring it down."""
+    budget = hbm_budget() if hbm is None else hbm
+    lo, hi = 0, len(mesh) * hbm_ceiling_groups(cfg, ring, budget)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if max(mesh_hbm_bytes(cfg, mid, mesh, ring).values()) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 def supported(cfg: RaftConfig, n_groups: int | None = None, ring: int = 0,
               hbm: int | None = None, host: int | None = None,
-              state_on_host: bool = True) -> bool:
+              state_on_host: bool = True, mesh=None) -> bool:
     """True iff the kernel takes the config (`shape_supported`) and, with
     `n_groups`, the run fits: resident, one launch in `hbm` bytes; under
     `stream_groups`, one window's pipeline in `hbm` and the run's host
-    copies (`host_bytes`) in `host` bytes (defaults: `hbm_budget()`,
-    `host_budget()`)."""
+    copies (`host_bytes`) in `host` bytes (defaults: `hbm_budget()` of
+    the card, `host_budget()`). Sharded over `mesh`, every card holds
+    the shards placed on it (`mesh_hbm_bytes`, summed over shards that
+    share it) within its budget: two shards on one card share that
+    card's `hbm`, they are not each granted it; resident, the first card
+    also holds the whole fleet's gather and finish. A CPU device of a
+    mesh is budgeted only against an `hbm` given."""
     if not shape_supported(cfg):
         return False
     if n_groups is None:
         return True
-    hbm = hbm_budget() if hbm is None else hbm
     if cfg.stream_groups:
         host = host_budget() if host is None else host
-        return (cohort_hbm_bytes(cfg, ring) <= hbm
-                and host_bytes(cfg, n_groups, ring, state_on_host) <= host)
-    return hbm_bytes(cfg, n_groups, ring) <= hbm
+        if host_bytes(cfg, n_groups, ring, state_on_host) > host:
+            return False
+    if mesh is None:
+        hbm = hbm_budget() if hbm is None else hbm
+        return (cohort_hbm_bytes(cfg, ring) if cfg.stream_groups
+                else hbm_bytes(cfg, n_groups, ring)) <= hbm
+    return all(need <= (hbm_budget(d) if hbm is None else hbm)
+               for d, need in mesh_hbm_bytes(cfg, n_groups, mesh,
+                                             ring).items()
+               if hbm is not None or d.type == "cuda")
 
 
 def shape_refusal(cfg: RaftConfig) -> str:
@@ -752,7 +889,8 @@ def unpack_wire(cfg: RaftConfig, packed: torch.Tensor,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """The unpack kernel's wrapper: a wire at rest -> the working wire,
     written into `out` (allocated when None). CUDA tensors launch the
-    kernel on the current stream (counted in `unpack_wire.launches`);
+    kernel on their device's current stream, with that device current
+    (counted in `unpack_wire.launches`);
     CPU tensors run `unpack`. Identity when no packing dial is on."""
     if not packs(cfg):
         return packed
@@ -767,7 +905,8 @@ def unpack_wire(cfg: RaftConfig, packed: torch.Tensor,
                  g)
     _codec_check("the working wire", out, n_work, g)
     plan = _codec_plan(cfg, ring)
-    with trace.launch_span("wire_unpack cuda", packed.device, groups=g):
+    with trace.launch_span("wire_unpack cuda", packed.device, groups=g), \
+            torch.cuda.device(packed.device):
         rc = load_codec().wire_unpack_launch(
             packed.data_ptr(), out.data_ptr(), plan.ctypes.data, len(plan),
             g, torch.cuda.current_stream(packed.device).cuda_stream)
@@ -786,8 +925,9 @@ def pack_wire(cfg: RaftConfig, wire: torch.Tensor,
     """The pack kernel's wrapper: a working wire -> the wire at rest,
     written into `out` (allocated when None). `flags_from` is a wire at
     rest whose sticky ring-overflow flags are ORed in (kstep's input; it
-    may be `out` itself). CUDA tensors launch the kernel on the current
-    stream (counted in `pack_wire.launches`); CPU tensors run `pack`.
+    may be `out` itself). CUDA tensors launch the kernel on their
+    device's current stream, with that device current (counted in
+    `pack_wire.launches`); CPU tensors run `pack`.
     Identity when no packing dial is on."""
     if not packs(cfg):
         return wire
@@ -809,7 +949,8 @@ def pack_wire(cfg: RaftConfig, wire: torch.Tensor,
         # the RING_BASE row: bit 31 of each word is a group's flag
         flags = flags_from[_rest_at(cfg, ring)[RING_BASE][0]].data_ptr()
     plan = _codec_plan(cfg, ring)
-    with trace.launch_span("wire_pack cuda", wire.device, groups=g):
+    with trace.launch_span("wire_pack cuda", wire.device, groups=g), \
+            torch.cuda.device(wire.device):
         rc = load_codec().wire_pack_launch(
             wire.data_ptr(), out.data_ptr(), flags, plan.ctypes.data,
             len(plan), g, torch.cuda.current_stream(wire.device).cuda_stream)
@@ -1202,8 +1343,9 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
     """One launch: `n_ticks` ticks from absolute tick `t0`. Returns the
     (wire, acc) pair after them: new tensors, or, under `alias_wire`,
     the input pair written over (the input is consumed). CUDA tensors
-    launch the tick kernel built for the universe's flag set on the
-    current stream (counted in `kstep.launches`), between `unpack_wire`
+    launch the tick kernel built for the universe's flag set on their
+    device's current stream, with that device made current whichever
+    the caller has (counted in `kstep.launches`), between `unpack_wire`
     and `pack_wire` when a packing dial is on; CPU tensors run
     `kstep_plain`."""
     _check_leaves(cfg, leaves)
@@ -1239,11 +1381,12 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
                                      int(t0), int(n_ticks))
     table = _nem_table(cfg, wire.device)
     stream = torch.cuda.current_stream(wire.device).cuda_stream
-    rc = lib.fused_chunk_launch(
-        None if wire_in is None else wire_in.data_ptr(), work.data_ptr(),
-        acc_out.data_ptr(), None if table is None else table.data_ptr(),
-        offs.ctypes.data, len(offs), params.ctypes.data, len(params),
-        nem.ctypes.data, len(nem), stream)
+    with torch.cuda.device(wire.device):   # the C side launches there
+        rc = lib.fused_chunk_launch(
+            None if wire_in is None else wire_in.data_ptr(), work.data_ptr(),
+            acc_out.data_ptr(), None if table is None else table.data_ptr(),
+            offs.ctypes.data, len(offs), params.ctypes.data, len(params),
+            nem.ctypes.data, len(nem), stream)
     if rc != 0:
         raise RuntimeError(f"fused_chunk launch failed: "
                            f"{_RC.get(rc, f'error {rc}')}")
@@ -1258,16 +1401,17 @@ kstep.launches = 0
 
 def krun(cfg: RaftConfig, leaves, t0: int, n_ticks: int,
          chunk_ticks: int | None = None, label: str | None = None,
-         **span_args):
+         engine: str | None = None, **span_args):
     """The chunked launch loop every driver shares: `n_ticks` ticks from
     tick `t0` in `kstep` launches of `chunk_ticks` ticks (default: one
-    launch), each inside an `obs.trace.chunk_span` (`span_args` added to
-    its args) and, with a `label`, followed by an
-    `obs.trace.heartbeat_wire` at the launch's last tick. Both are
-    no-ops unless a tracer or heartbeat is installed. Returns the wire
-    pair after the ticks (under `alias_wire`, the input pair written
-    over)."""
-    engine = "cuda" if leaves[0].device.type == "cuda" else "plain"
+    launch), each inside an `obs.trace.chunk_span` of `engine` (default:
+    "cuda" on a card, else "plain"; `span_args` added to its args) and,
+    with a `label`, followed by an `obs.trace.heartbeat_wire` at the
+    launch's last tick. Both are no-ops unless a tracer or heartbeat is
+    installed. Returns the wire pair after the ticks (under `alias_wire`,
+    the input pair written over)."""
+    if engine is None:
+        engine = "cuda" if leaves[0].device.type == "cuda" else "plain"
     chunk = chunk_ticks or n_ticks
     at, end = int(t0), int(t0) + int(n_ticks)
     while at < end:

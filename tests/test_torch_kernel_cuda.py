@@ -17,7 +17,10 @@ bump injected into a kernel engine named by tick and leaf. The packed wire
 codec kernels against plain `pack`/`unpack` on chip_smoke.py's four
 packed universes at 1,000 groups, the histogram-free launch, the
 aliased in-place launch, the narrow dials and the streamed pipeline.
-Needs an NVIDIA GPU and nvcc; skips without CUDA.
+The multi-device drivers: two and three shards on one card (resident,
+packed, clients; and streamed) against one resident launch, and
+launches on two cards each under the other's current context (skipped
+below two cards). Needs an NVIDIA GPU and nvcc; skips without CUDA.
 Imports no JAX, so it runs on a card machine without it (skipping the
 suite's JAX conftest):
 
@@ -489,3 +492,84 @@ def test_streamed_matches_resident_on_card(cuda):
                 assert (x == y).all()
     assert stats["cohorts"] == 3 and stats["launches"] == 9
     assert 0 < stats["overlap_efficiency_measured"] <= 1.0 + 1e-6
+
+
+def assert_trees_equal(a, b, path="out"):
+    """Two trees of tensors (State, Metrics, Flight and tuples of them)
+    equal leaf by leaf, wherever their tensors lie."""
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b.to(a.device)), path
+        return
+    assert (a is None) == (b is None), path
+    if a is not None:
+        names = getattr(a, "_fields", range(len(a)))
+        for name, x, y in zip(names, a, b):
+            assert_trees_equal(x, y, f"{path}.{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("kw", [
+    dict(n_groups=1000, **CONFIG4),
+    dict(n_groups=1000, pack_bools=True, pack_ring=True, alias_wire=True,
+         **CONFIG4),
+    dict(n_groups=700, **BENCH_CLIENTS)],
+    ids=["config4", "packed", "clients"])
+def test_shards_on_one_card_match_the_single_device_kernel(cuda, n, kw):
+    """n shards on one card (`kmesh.prun_sharded` over `[cuda:0] * n`, an
+    uneven split, each shard on its own stream), in two launches, with
+    the flight ring where clients run: equal to one resident `prun`;
+    `kglobal_sharded` equal to its counters; the same fleet streamed over
+    the shards (`prun_streamed_sharded`, one-block windows) equal too."""
+    from raft_tpu_torch.parallel import cohort, kmesh
+    cfg = RaftConfig(**kw)
+    flight = (recorder.flight_init(cfg.n_groups, device=cuda)
+              if cfg.clients_u32 else None)
+    st0 = state.init(cfg, device=cuda)
+    mesh = (cuda,) * n
+    want = kernel.prun(cfg, st0, 60, flight=flight)
+    kernel.kstep.launches = 0
+    got = kmesh.prun_sharded(cfg, st0, 60, mesh, flight=flight,
+                             chunk_ticks=30)
+    assert kernel.kstep.launches == 2 * n
+    assert_trees_equal(want, got)
+    shards, g = kmesh.kinit_sharded(cfg, st0, mesh)
+    shards = kmesh.kstep_sharded(cfg, shards, 0, 60, mesh)
+    gm = kmesh.kglobal_sharded(cfg, shards, g, mesh)
+    assert int(gm.rounds) == run.total_rounds(want[1])
+    assert int(gm.elections) == int(want[1].elections)
+    assert torch.equal(gm.hist, want[1].hist)
+    assert int(gm.unsafe) == run.unsafe_groups(want[1]) == 0
+    scfg = dataclasses.replace(cfg, stream_groups=True, cohort_blocks=1)
+    stats = {}
+    out = cohort.prun_streamed_sharded(scfg, st0, 60, mesh, flight=flight,
+                                       chunk_ticks=30, stats=stats)
+    assert_trees_equal(want, out)
+    assert stats["n_devices"] == n and len(stats["per_device"]) == n
+
+
+@pytest.mark.cuda
+def test_two_cards_launch_on_their_own_context(cuda):
+    """Each launch runs on its tensor's card whichever card is current,
+    and the plan cache is the card's own: shards on cuda:0 and cuda:1,
+    each launched while the other card is current (kernel and codec
+    wrappers directly, then `kmesh.prun_sharded`), equal a one-card run
+    at the headline's block (27 groups of 8,600 B, past the 48 KB a
+    launch gets without the opt-in)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from raft_tpu_torch.parallel import kmesh
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    for dials in ({}, dict(pack_bools=True, pack_ring=True)):
+        cfg = RaftConfig(n_groups=2000, seed=42, **dials)
+        want = kernel.prun(cfg, state.init(cfg, device=d0), 40)
+        for dev, other in ((d0, d1), (d1, d0)):
+            leaves, g = kernel.kinit(cfg, state.init(cfg, device=dev))
+            with torch.cuda.device(other):
+                leaves = kernel.kstep(cfg, leaves, 0, 20)
+                leaves = kernel.kstep(cfg, leaves, 20, 20)
+            assert_trees_equal(want, kernel.kfinish(cfg, leaves, g))
+        with torch.cuda.device(d1):
+            got = kmesh.prun_sharded(cfg, state.init(cfg, device=d0), 40,
+                                     (d0, d1), chunk_ticks=20)
+        assert_trees_equal(want, got)

@@ -146,10 +146,17 @@ def test_stream_and_narrow_stamps():
     assert f["stream_devices"] == 1 and f["stream_blocks_per_device"] == 98
     assert roofline.stream_segment_fields(HEAD)[
         "overlap_efficiency_predicted"] is None
-    with pytest.raises(NotImplementedError):
-        roofline.overlap_efficiency(scfg, n_devices=2)
-    with pytest.raises(NotImplementedError):
-        roofline.stream_segment_fields(scfg, n_devices=4)
+    # over a mesh: the JAX package's per-device model, N equal entries
+    two = roofline.overlap_efficiency(scfg, n_devices=2)
+    assert two["blocks_per_device"] == 49 and two["n_devices"] == 2
+    assert two["overlap_efficiency_per_device_predicted"] == [round(
+        two["overlap_efficiency_predicted"], 6)] * 2
+    four = roofline.stream_segment_fields(scfg, n_devices=4,
+                                          per_device_measured=[0.5] * 4,
+                                          slowest_device=3)
+    assert four["stream_devices"] == 4 and four[
+        "stream_blocks_per_device"] == 25
+    assert four["stream_slowest_device"] == 3
     n = roofline.narrow_segment_fields(bytemodel.all_dials_cfg(HEAD))
     assert set(n) == set(manifest.NARROW_KEYS)
     assert n["narrow_resident_bytes_per_group"] == 2_626

@@ -1,7 +1,8 @@
 """Structural rules of the port: no module of raft_tpu_torch/ and not
 chip_smoke.py imports jax or the JAX package (an AST scan of every
-import), entry points default to the CUDA device, and the kernel source
-is the one the wrapper builds for sm_90a."""
+import), entry points default to the CUDA device (a mesh to every
+visible card, never the CPU in its place), and the kernel source is the
+one the wrapper builds for sm_90a."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import inspect
 from pathlib import Path
 
 import pytest
+import torch
 
 from raft_tpu_torch.clients import state as cstate
 from raft_tpu_torch.nemesis import search
@@ -21,7 +23,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py",
      ROOT / "scripts" / "torch_nemesis_search.py",
-     ROOT / "scripts" / "torch_bench_history.py"]
+     ROOT / "scripts" / "torch_bench_history.py",
+     ROOT / "scripts" / "torch_multichip_sweep.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -70,6 +73,23 @@ def test_scan_sees_imports():
                               "safety_repro"])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_make_mesh_defaults_to_cuda(monkeypatch):
+    """The mesh's default is every visible card, and without one it
+    raises rather than take the CPU; the CPU only when named."""
+    from raft_tpu_torch.parallel import mesh
+    assert inspect.signature(mesh.make_mesh).parameters[
+        "devices"].default is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="never taken in place of a card"):
+        mesh.make_mesh()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert mesh.make_mesh() == (torch.device("cuda", 0),
+                                torch.device("cuda", 1))
+    with pytest.raises(ValueError, match="need 3 devices"):
+        mesh.make_mesh(3)
+    assert mesh.make_mesh(devices=["cpu"] * 2) == (torch.device("cpu"),) * 2
 
 
 def test_kernel_source_and_build_flags():

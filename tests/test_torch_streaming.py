@@ -5,8 +5,8 @@ against the JAX package and the port's resident kernel path, tolerance
 `kmesh.faulted_64_cfg()`); at 2,048 groups with `cohort_blocks=1` (two
 windows, several launches each, with and without the flight ring) it
 equals the resident `kernel.prun`; the host store is window-major, the
-streamed byte model's budgets hold at their boundaries, and more than
-one device is refused."""
+streamed byte model's budgets hold at their boundaries, and two devices
+step by the sharded global window."""
 
 from __future__ import annotations
 
@@ -130,8 +130,8 @@ def test_host_store_is_window_major():
 def test_streamed_budgets_and_refusals():
     """The streamed ceiling is host-bound in whole blocks (the host copies
     of `host_bytes`) and 0 when one window's pipeline does not fit the
-    card; `supported` holds at its boundaries; more than one device
-    raises NotImplementedError."""
+    card; `supported` holds at its boundaries; over two devices the
+    windows step by the sharded global window."""
     cfg = RaftConfig(seed=42, stream_groups=True, cohort_blocks=98,
                      **PACKED)
     assert kernel.window_groups(cfg) == 100_352
@@ -156,8 +156,9 @@ def test_streamed_budgets_and_refusals():
     small = kernel.cohort_hbm_bytes(cfg) - 1
     assert kernel.streamed_ceiling_groups(cfg, hbm=small, host=host) == 0
     assert not kernel.supported(cfg, 1000, hbm=small, host=host)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cohort.cohort_windows(cfg, 1000, n_devices=2)
+    assert cohort.cohort_windows(cfg, 1000, n_devices=2) == [(0, 1000)]
+    assert cohort.cohort_windows(cfg, 250_000, n_devices=2) == [
+        (0, 100_352), (100_352, 200_704), (200_704, 250_000)]
 
 
 def test_fresh_host_wire_is_the_init_of_the_fleet():
