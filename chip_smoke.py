@@ -130,6 +130,21 @@ launch counts set to 0 just before it and read just after:
    (f)'s); `kernel.supported` refuses two shards on the card that fit
    alone but not together; and a line says whether the two-card check
    of tests/test_torch_kernel_cuda.py could run (it needs two cards);
+(k) the static audit and the stream-ordering hazard prover
+   (raft_tpu_torch/analysis/, verify/hazards.py): (k1)
+   `analysis.startup_audit("static")` before phase 2's builds (the
+   contracts, the byte model and the lint; a drift fails the run);
+   (k2) `contracts.kernel_plan_problems` over every run's launch shape
+   and the streamed windows' (the launcher's block against the
+   shared-memory model of each build loaded), which must be empty;
+   (k3) phase (f)'s packed million streamed on one shard, and (j4)'s
+   two shards on the card, again under `hazards.capture(observe=True)`
+   (every stream, event, copy and launch recorded as it is made): each
+   equal to (f)'s result at max abs err 0, its trace with zero hazards
+   under `hazards.check_trace`, and a line of its event counts (h2d,
+   launches, d2h, waits, record_streams, host syncs) and of its end to
+   end seconds between the same run uncaptured before and after it; the
+   observed runs' launches join the kernels line's counts;
 7. a `kernels` JSON line: launches, times and bound of the fused chunk
    and the two codec kernels, and the same for each flag set's build by
    run (with each run's steady-state time: three launches more from its
@@ -1196,6 +1211,101 @@ def multi_device(dev, by_label, starts, main, f_out):
     return report
 
 
+def audit_on_card(dev, runs, f_out):
+    """Phase (k2) and (k3): the launcher's block shape against the
+    shared-memory model (`contracts.kernel_plan_problems`) for every run
+    and the streamed windows, then phase (f)'s packed million streamed on
+    one shard and over two shards of the card under an observed capture
+    (`hazards.capture(observe=True)`), each held to (f)'s result at max
+    abs err 0 with a hazard-free trace, each between the same run
+    uncaptured before and after it. Returns {"launches": {run: {kernel:
+    n}}, "events": {run: counts}, "seconds": {run: (uncaptured before,
+    observed, uncaptured after)}}."""
+    from raft_tpu_torch.analysis import contracts
+    from raft_tpu_torch.obs import recorder
+    from raft_tpu_torch.parallel import cohort
+    from raft_tpu_torch.sim import kernel, state
+    from raft_tpu_torch.verify import hazards
+
+    cfg = runs[0][1]
+    scfg = dataclasses.replace(cfg, pack_bools=True, pack_ring=True,
+                               stream_groups=True,
+                               cohort_blocks=STREAM_BLOCKS)
+    plan_runs = [(label, c, g, recorder.RING if fl else 0)
+                 for label, c, g, fl, _ in runs]
+    plan_runs += [("streamed window", scfg, kernel.window_groups(scfg), 0),
+                  ("streamed shard slice", scfg,
+                   kernel.window_groups(scfg, 2) // 2, 0)]
+    problems = contracts.kernel_plan_problems(plan_runs)
+    if problems:
+        raise AssertionError(f"(k2) kernel plans: {problems}")
+    builds = {kernel.flag_name(kernel.features(c)) for _, c, _, _ in
+              plan_runs}
+    print(f"[k2] kernel_plan_problems over {len(plan_runs)} launch shapes "
+          f"of {len(builds)} builds: none (groups per block x shared bytes "
+          f"per group + the clause table == the block's shared bytes <= "
+          f"{kernel.SMEM_PER_BLOCK})", flush=True)
+
+    f_ref, _ = f_out
+    st0 = state.init(cfg, STREAM_GROUPS, device=dev)
+    report = {"launches": {}, "events": {}, "seconds": {}}
+    for label, mesh in (("f", None), ("j4", (dev, dev))):
+        def streamed():
+            out = (cohort.prun_streamed(scfg, st0, CHUNK, device=dev)
+                   if mesh is None else
+                   cohort.prun_streamed_sharded(scfg, st0, CHUNK, mesh))
+            torch.cuda.synchronize()
+            return out
+
+        # the same run uncaptured before and after, for the capture's
+        # cost: the first of the three may pay one-time host costs (the
+        # pinned store's allocation, a candidate), so the observed run
+        # is timed against the one after it (their launches are outside
+        # the counted ones)
+        t = time.time()
+        out = streamed()
+        first = time.time() - t
+        e = trees_err_on(dev, out, f_ref)
+        del out
+        events = []
+        reset_counts(kernel)
+        t = time.time()
+        with hazards.capture(events, observe=True):
+            out = streamed()
+        secs = time.time() - t
+        got = counts(kernel)
+        e = max(e, trees_err_on(dev, out, f_ref))
+        del out
+        t = time.time()
+        out = streamed()
+        bare = time.time() - t
+        e = max(e, trees_err_on(dev, out, f_ref))
+        del out
+        found = hazards.check_trace(events, STREAM_GROUPS)
+        n = hazards.counts(events)
+        if e or found or n["launches"] != got["fused_chunk"] \
+                or n["h2d"] != n["d2h"] or not n["launches"]:
+            raise AssertionError(
+                f"(k3) observed ({label}): max abs err {e}, hazards "
+                f"{[str(h) for h in found[:5]]}, events {n}, launches "
+                f"{got}")
+        report["launches"][label] = got
+        report["events"][label] = n
+        report["seconds"][label] = (first, secs, bare)
+        print(f"[k3] ({label}) {STREAM_GROUPS} groups streamed "
+              + ("on one shard" if mesh is None else
+                 "over two shards of the card")
+              + f" under an observed capture: max abs err 0 against (f)'s "
+              f"uncaptured run; 0 hazards in {len(events)} events; h2d "
+              f"{n['h2d']}, launches {n['launches']}, d2h {n['d2h']}, "
+              f"waits {n['waits']}, record_streams {n['record_streams']}, "
+              f"host syncs {n['host_syncs']}; kernel launches {got}; "
+              f"{secs:.2f} s end to end, uncaptured {first:.2f} s before "
+              f"it and {bare:.2f} s after it", flush=True)
+    del st0
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--obs-dir", default=None,
@@ -1226,6 +1336,14 @@ def main(argv=None) -> int:
     card = gpu_line()
     power_w = float(card.split(",")[-1].split()[0])
     print(f"[1] gpu: {card}", flush=True)
+
+    # (k1) the static audit, before any build: no number off a drifted
+    # layout
+    from raft_tpu_torch import analysis
+    t = time.time()
+    analysis.startup_audit(
+        "static", log=lambda m: print(f"[k1] {m} ({time.time() - t:.1f} s, "
+                                      f"before the builds)", flush=True))
 
     # 2. build the flag sets without nemesis and those the runs launch with
     # it, in parallel
@@ -1802,11 +1920,20 @@ def main(argv=None) -> int:
     # one card, the sharded streamed million, the per-card budget
     t = time.time()
     sharded = multi_device(dev, by_label, starts, main, f_out)
-    del f_out
     paths["sharded"] = sum(sharded["launches"][k]["fused_chunk"]
                            for k in ("j1", "j2", "j3", "j4"))
     print(f"[j] multi-device drivers: {time.time() - t:.1f} s; launches "
           f"{sharded['launches']}", flush=True)
+
+    # (k) the launch plans, and the streamed runs again under an observed
+    # capture, proven free of stream-ordering hazards
+    t = time.time()
+    observed = audit_on_card(dev, runs, f_out)
+    del f_out
+    paths["observed"] = sum(v["fused_chunk"]
+                            for v in observed["launches"].values())
+    print(f"[k] launch plans and observed streams: {time.time() - t:.1f} s "
+          f"({card}); launches {observed['launches']}", flush=True)
 
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with
@@ -1863,7 +1990,9 @@ def main(argv=None) -> int:
          "max_abs_err": codec_err, "ms": c["ms"], "plain_ms": c["plain_ms"],
          "bound_ms": c["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "paths": {"packed": codec_n[name],
-                   "sharded_streamed": sharded["launches"]["j4"][name]}}
+                   "sharded_streamed": sharded["launches"]["j4"][name],
+                   "observed": sum(v[name] for v in
+                                   observed["launches"].values())}}
         for name, c in codec.items()]
     print(f"[7] memory {json.dumps(memory)}", flush=True)
     print(f"[7] near the ceiling {json.dumps(near)}", flush=True)

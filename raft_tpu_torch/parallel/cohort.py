@@ -71,7 +71,7 @@ from raft_tpu_torch.obs import trace
 from raft_tpu_torch.obs.recorder import Flight
 from raft_tpu_torch.parallel import groups, kmesh, stream_sched
 from raft_tpu_torch.parallel.mesh import make_mesh
-from raft_tpu_torch.sim import kernel
+from raft_tpu_torch.sim import kernel, streams
 from raft_tpu_torch.sim import state as state_mod
 from raft_tpu_torch.sim.run import Metrics
 from raft_tpu_torch.sim.state import I32, State
@@ -300,6 +300,7 @@ def _stream_card(cfg, hw: HostWire, t0: int, n_ticks: int, chunk: int,
     h2d, compute and d2h seconds (CUDA events). With a tracer installed,
     each window's h2d copy, launches and d2h copy become a span at its
     device time, on one lane per stream and shard."""
+    cs = streams.cuda
     n = len(hw.mesh)
     lanes = stream_sched.lanes(hw.mesh)
     pool = stream_sched.StagingPool(hw)
@@ -307,9 +308,9 @@ def _stream_card(cfg, hw: HostWire, t0: int, n_ticks: int, chunk: int,
     if tracer is not None:   # the clock that places the streams' events
         ref = {}
         for j, d in enumerate(hw.mesh):
-            ref[j] = torch.cuda.Event(enable_timing=True)
-            ref[j].record(lanes[j].comp)
-            ref[j].synchronize()
+            ref[j] = cs.event()
+            cs.record(ref[j], lanes[j].comp)
+            cs.event_sync(ref[j])
         ref_us = tracer.now_us()
 
     spans = {j: {"h2d": [], "compute": [], "d2h": []} for j in range(n)}
@@ -323,33 +324,32 @@ def _stream_card(cfg, hw: HostWire, t0: int, n_ticks: int, chunk: int,
         if i + 1 < len(hw.parts):
             nxt = stream_sched.put_window(hw, i + 1, lanes, pool)  # prefetch
         for j, (_, _, ev) in cur.items():
-            lanes[j].comp.wait_event(ev[1])
+            cs.wait_event(lanes[j].comp, ev[1])
         drained = stream_sched.drain_window(hw, pending, lanes)   # i - 1
         for j, ev in drained.items():
             spans[j]["d2h"].append((i - 1, ev))
         pending = {}
         for j, (b, d, _) in cur.items():
             comp = lanes[j].comp
-            c0 = torch.cuda.Event(enable_timing=True)
-            c1 = torch.cuda.Event(enable_timing=True)
+            c0, c1 = cs.event(), cs.event()
             s0, s1 = hw.windows[b]
-            with torch.cuda.stream(comp):
-                c0.record(comp)
+            with cs.use(comp):
+                cs.record(c0, comp)
                 (d, hw.accs[j]), k = _launches(cfg, (d, hw.accs[j]), t0,
                                                n_ticks, chunk, i, s1 - s0,
                                                hw, j)
-                c1.record(comp)
+                cs.record(c1, comp)
             launches += k
             spans[j]["compute"].append((i, (c0, c1)))
             pending[j] = (b, d, c1)
         del cur, d
         for ev in drained.values():
-            ev[1].synchronize()
+            cs.event_sync(ev[1])
     for j, ev in stream_sched.drain_window(hw, pending, lanes).items():
         spans[j]["d2h"].append((len(hw.parts) - 1, ev))
     del pending
     for d in set(hw.mesh):
-        torch.cuda.synchronize(d)
+        cs.device_sync(d)
     eng = sharded_engine(n)
     for j in range(n):
         for lane, kind in enumerate(("h2d", "compute", "d2h")):

@@ -47,7 +47,7 @@ from raft_tpu_torch.parallel import groups
 from raft_tpu_torch.parallel.mesh import (GlobalMetrics, as_shards,
                                           make_mesh, placement,
                                           reduce_counters)
-from raft_tpu_torch.sim import kernel
+from raft_tpu_torch.sim import kernel, streams
 from raft_tpu_torch.sim import state as state_mod
 from raft_tpu_torch.sim.run import HIST_SIZE, Metrics
 from raft_tpu_torch.sim.state import I32
@@ -83,14 +83,8 @@ def shard_stream(mesh, j: int):
     mesh = make_mesh(devices=mesh)
     dev = mesh[j]
     if mesh.count(dev) == 1:
-        return torch.cuda.current_stream(dev)
-    return _own_stream(dev, j)
-
-
-@functools.cache
-def _own_stream(device: torch.device, j: int):
-    """Shard `j`'s own CUDA stream on `device`, made once per process."""
-    return torch.cuda.Stream(device)
+        return streams.cuda.current_stream(dev)
+    return streams.cuda.own_stream(dev, j)
 
 
 def kinit_sharded(cfg: RaftConfig, st, mesh, metrics: Metrics | None = None,
@@ -113,30 +107,34 @@ def kstep_sharded(cfg: RaftConfig, shards, t0: int, n_ticks: int, mesh):
     the shard's stream (`shard_stream`); one of its own is ordered after
     the device's current stream and before it again on return. Returns
     the shards after the ticks (under `alias_wire`, the input pairs
-    written over: the inputs are consumed, as with `kstep`)."""
+    written over: the inputs are consumed, as with `kstep`). Shard j
+    lies on `mesh[j]`."""
+    cs = streams.cuda
+    mesh = make_mesh(devices=mesh)
     own = []
     out = []
     for j, leaves in enumerate(shards):
-        dev = leaves[0].device
+        dev = mesh[j]
         engine = sharded_engine(len(mesh), dev)
         side = shard_stream(mesh, j) if dev.type == "cuda" else None
-        if side is None or side == torch.cuda.current_stream(dev):
+        if side is None or side == cs.current_stream(dev):
             with trace.chunk_span(engine, t0, n_ticks, dev, shard=j):
-                out.append(kernel.kstep(cfg, leaves, t0, n_ticks))
+                out.append(cs.kstep(cfg, leaves, t0, n_ticks))
             continue
         own.append(j)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        cs.wait_stream(side, cs.current_stream(dev))
+        with cs.use(side):
             with trace.chunk_span(engine, t0, n_ticks, dev, shard=j):
-                res = kernel.kstep(cfg, leaves, t0, n_ticks)
+                res = cs.kstep(cfg, leaves, t0, n_ticks)
         for a in leaves:
-            a.record_stream(side)
+            cs.record_stream(a, side)
         out.append(res)
     for j in own:
-        main = torch.cuda.current_stream(out[j][0].device)
-        main.wait_stream(shard_stream(mesh, j))
+        main = cs.current_stream(mesh[j])
+        cs.wait_stream(main, shard_stream(mesh, j))
         for a in out[j]:
-            a.record_stream(main)
+            cs.record_stream(a, main)
+    cs.join([a for res in out for a in res])   # the caller's reads
     return out
 
 
@@ -158,6 +156,7 @@ def kglobal_sharded(cfg: RaftConfig, shards, g: int, mesh) -> GlobalKMetrics:
     held = sum(w.shape[1] for w, _ in shards)
     if held != g:
         raise ValueError(f"the shards hold {held} groups, not {g}")
+    streams.cuda.join([a for sh in shards for a in sh])
     parts = []
     for leaves in shards:
         n = leaves[0].shape[1]
@@ -186,6 +185,7 @@ def gather(cfg: RaftConfig, shards, device):
     written into one new wire there, a shard on another device through a
     copy of its wire on `device`, one at a time; one shard already there
     is its own wire."""
+    streams.cuda.join([a for sh in shards for a in sh])
     acc = reduce_acc(cfg, [a for _, a in shards], device)
     wires = [w for w, _ in shards]
     if len(wires) == 1 and wires[0].device == device:

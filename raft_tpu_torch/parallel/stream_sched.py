@@ -27,7 +27,8 @@ window's bytes cross between the host and the devices:
 
 On the CPU (a mesh of `"cpu"` devices) the copies are synchronous and
 timed by the host clock (`per_device`); `cohort`'s CPU pipeline moves
-its windows through the same two functions.
+its windows through the same two functions. Every stream, event, copy
+and host wait goes through the table of `sim/streams.py`.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from raft_tpu_torch.sim import kernel
+from raft_tpu_torch.sim import kernel, streams
 from raft_tpu_torch.sim.state import I32
 
 
@@ -72,9 +73,10 @@ def lanes(mesh) -> list:
     on its card, else its own, so shards sharing a card overlap), and two
     copy streams of its own."""
     from raft_tpu_torch.parallel.kmesh import shard_stream
-    return [Lane(shard_stream(mesh, j), torch.cuda.Stream(d),
-                 torch.cuda.Stream(d)) if d.type == "cuda"
-            else Lane(None, None, None) for j, d in enumerate(mesh)]
+    cs = streams.cuda
+    return [Lane(shard_stream(mesh, j), cs.stream(d), cs.stream(d))
+            if d.type == "cuda" else Lane(None, None, None)
+            for j, d in enumerate(mesh)]
 
 
 class StagingPool:
@@ -88,17 +90,13 @@ class StagingPool:
             raise ValueError("stream_sched: not a wire of int32 words: "
                              + "; ".join(bad))
         if any(d.type == "cuda" for d in hw.mesh) and not all(
-                b.is_pinned() for b in hw.blocks):
+                streams.cuda.pinned(b) for b in hw.blocks):
             raise ValueError("stream_sched: the host wire is not pinned")
         self.hw = hw
 
     def stage(self, i: int) -> list:
         """[(block index, block), ...] of window i, in shard order."""
         return [(b, self.hw.blocks[b]) for b in self.hw.parts[i]]
-
-
-def _event():
-    return torch.cuda.Event(enable_timing=True)
 
 
 def tally(per_device, j: int, key: str, secs: float):
@@ -118,6 +116,7 @@ def put_window(hw, i: int, lanes_, pool: StagingPool | None = None,
     From `pool`'s pinned blocks, or, without one, from the host wire's
     own blocks as they are (the naive path when they are pageable).
     `per_device` gathers each shard's host seconds (CPU: the copy)."""
+    cs = streams.cuda
     srcs = pool.stage(i) if pool is not None else [
         (b, hw.blocks[b]) for b in hw.parts[i]]
     out = {}
@@ -126,16 +125,16 @@ def put_window(hw, i: int, lanes_, pool: StagingPool | None = None,
         dev, lane = hw.mesh[j], lanes_[j]
         tic = time.perf_counter()
         if lane.comp is None:
-            out[j] = (b, src.to(dev, copy=True), None)
+            out[j] = (b, cs.to_device(src, dev, hw.windows[b]), None)
         else:
-            with torch.cuda.stream(lane.comp):
-                d = torch.empty(src.shape, dtype=I32, device=dev)
-            lane.up.wait_stream(lane.comp)
-            e0, e1 = _event(), _event()
-            with torch.cuda.stream(lane.up):
-                e0.record(lane.up)
-                d.copy_(src, non_blocking=True)
-                e1.record(lane.up)
+            with cs.use(lane.comp):
+                d = cs.empty(src.shape, dev)
+            cs.wait_stream(lane.up, lane.comp)
+            e0, e1 = cs.event(), cs.event()
+            with cs.use(lane.up):
+                cs.record(e0, lane.up)
+                cs.copy(d, src, hw.windows[b])
+                cs.record(e1, lane.up)
             out[j] = (b, d, (e0, e1))
         tally(per_device, j, "h2d_s", time.perf_counter() - tic)
     return out
@@ -150,21 +149,22 @@ def drain_window(hw, pending: dict, lanes_,
     slice is kept from reuse until the copy is done; on the CPU it is
     done on return. `per_device` gathers each shard's host seconds (CPU:
     the copy)."""
+    cs = streams.cuda
     out = {}
     for j, (b, cur, done) in pending.items():
         lane = lanes_[j]
         tic = time.perf_counter()
         if lane.comp is None:
-            hw.blocks[b].copy_(cur)
+            cs.copy(hw.blocks[b], cur, hw.windows[b], non_blocking=False)
             out[j] = None
         else:
-            lane.down.wait_event(done)
-            e0, e1 = _event(), _event()
-            with torch.cuda.stream(lane.down):
-                e0.record(lane.down)
-                hw.blocks[b].copy_(cur, non_blocking=True)
-                e1.record(lane.down)
-            cur.record_stream(lane.down)
+            cs.wait_event(lane.down, done)
+            e0, e1 = cs.event(), cs.event()
+            with cs.use(lane.down):
+                cs.record(e0, lane.down)
+                cs.copy(hw.blocks[b], cur, hw.windows[b])
+                cs.record(e1, lane.down)
+            cs.record_stream(cur, lane.down)
             out[j] = (e0, e1)
         tally(per_device, j, "d2h_s", time.perf_counter() - tic)
     return out
@@ -195,7 +195,7 @@ def staging_ablation(cfg, mesh, n_windows: int = 4, repeats: int = 3) -> dict:
                 put_window(wire, i, lanes_, pool=use)
             for d in set(mesh):
                 if d.type == "cuda":
-                    torch.cuda.synchronize(d)
+                    streams.cuda.device_sync(d)
             wall = time.perf_counter() - tic
             best = wall if best is None else min(best, wall)
         walls[label] = best

@@ -101,6 +101,7 @@ from raft_tpu_torch.obs import trace
 from raft_tpu_torch.obs.recorder import FLIGHT_LEAVES, Flight
 from raft_tpu_torch.sim import run as run_mod
 from raft_tpu_torch.sim import state as state_mod
+from raft_tpu_torch.sim import streams
 from raft_tpu_torch.sim.run import HIST_SIZE, Metrics
 from raft_tpu_torch.sim.state import (BOOL, I32, MB_BOOL, MB_CS, MB_FIELDS,
                                       Mailbox, PerNode, State,
@@ -969,7 +970,7 @@ def check_ring_overflow(cfg: RaftConfig, wire: torch.Tensor) -> None:
     never leave kfinish."""
     if not cfg.pack_ring:
         return
-    n = int(ring_flags(cfg, wire).sum())
+    n = int(ring_flags(cfg, wire).sum())  # sync-ok: kfinish's refusal
     if n:
         raise ValueError(
             f"pack_ring: ring-term delta overflowed the 16-bit half-lane "
@@ -1062,7 +1063,8 @@ def klane(cfg: RaftConfig, leaves, g: int, field: str) -> torch.Tensor:
 
 def _lane_sum(cfg: RaftConfig, leaves, g: int, field: str) -> int:
     """The int64 sum of one field's rows over the first g groups."""
-    return int(klane(cfg, leaves, g, field).to(torch.int64).sum())
+    # sync-ok: a host readout of the wire, after the launches
+    return int(klane(cfg, leaves, g, field).to(torch.int64).sum())  # sync-ok
 
 
 def kcommitted(cfg: RaftConfig, leaves, g: int) -> int:
@@ -1090,7 +1092,7 @@ def kretries(cfg: RaftConfig, leaves, g: int) -> int:
 
 def kelections(cfg: RaftConfig, leaves, g: int) -> int:
     acc = leaves[1]
-    return int(acc[_hist_size(cfg, acc)])
+    return int(acc[_hist_size(cfg, acc)])  # sync-ok: a host readout
 
 
 def khist(cfg: RaftConfig, leaves, g: int, name: str = "hist") -> np.ndarray:
@@ -1404,8 +1406,9 @@ def krun(cfg: RaftConfig, leaves, t0: int, n_ticks: int,
          engine: str | None = None, **span_args):
     """The chunked launch loop every driver shares: `n_ticks` ticks from
     tick `t0` in `kstep` launches of `chunk_ticks` ticks (default: one
-    launch), each inside an `obs.trace.chunk_span` of `engine` (default:
-    "cuda" on a card, else "plain"; `span_args` added to its args) and,
+    launch; each through the stream table, `sim/streams.py`), each
+    inside an `obs.trace.chunk_span` of `engine` (default: "cuda" on a
+    card, else "plain"; `span_args` added to its args) and,
     with a `label`, followed by an `obs.trace.heartbeat_wire` at the
     launch's last tick. Both are no-ops unless a tracer or heartbeat is
     installed. Returns the wire pair after the ticks (under `alias_wire`,
@@ -1418,7 +1421,7 @@ def krun(cfg: RaftConfig, leaves, t0: int, n_ticks: int,
         step = min(chunk, end - at)
         with trace.chunk_span(engine, at, step, leaves[0].device,
                               **span_args):
-            leaves = kstep(cfg, leaves, at, step)
+            leaves = streams.cuda.kstep(cfg, leaves, at, step)
         at += step
         if label is not None:
             trace.heartbeat_wire(label, at, cfg, leaves, leaves[0].shape[1])

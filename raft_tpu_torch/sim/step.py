@@ -746,7 +746,9 @@ def _phase_a(cfg, ns, g, i, t: int):
     # is above the entry and its sid is one of the S pre-registered ones.
     applied, digest = ns.applied, ns.digest
     table = ns.session_seq
-    steps = int((commit - applied).amax().clamp(0, cfg.log_cap))
+    # sync-ok: the plain tick runs its apply loop to the fleet's largest
+    # commit gap (the kernel loops per group, on the card)
+    steps = int((commit - applied).amax().clamp(0, cfg.log_cap))  # sync-ok
     for _ in range(steps):
         idx = applied + 1
         act = idx <= commit

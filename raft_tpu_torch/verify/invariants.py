@@ -100,6 +100,7 @@ def leader_completeness(role, term, commit, last_index, snap_index,
     term_a >= term_b: commit_b <= last_index_a, and on every ring lane
     where both slots map to the same absolute index within b's committed
     prefix and a's log, the payloads agree."""
+    term = _signed(term)   # a u16 term has no ordered compare on the CPU
     commit = _signed(commit)
     last_index = _signed(last_index)
     k = role.shape[-1]

@@ -21,9 +21,12 @@ package.
     # the same on the CPU, where the kernel's plain version stands in:
     python scripts/torch_nemesis_search.py --device cpu --check-kernel
 
+A model-checker reproducer (`verify/mcheck.py`, from either package)
+replays on the checker's universe, the CPU oracle, whatever `--device`.
+
 Exit codes: 0 clean, 1 a replay that drifted, 2 a refused request (no
-CUDA device, an artifact kind the port cannot replay yet), 3 a
-violation or an engine divergence found.
+CUDA device, an incomplete artifact), 3 a violation or an engine
+divergence found.
 """
 
 from __future__ import annotations
@@ -62,14 +65,36 @@ def base_config(seed: int) -> RaftConfig:
                       drop_prob=0.03, crash_prob=0.1, crash_epoch=24)
 
 
-def replay(path: str, n_groups: int, device: str) -> int:
+def artifact_kind(path: str):
     with open(path) as fh:
-        kind = json.load(fh).get("kind")
-    if kind == "mcheck-reproducer":
-        log(f"{path}: a model-checker reproducer (verify/mcheck) replays on "
-            f"the checker's own universe, which the port does not have "
-            f"yet; replay it with scripts/nemesis_search.py")
+        return json.load(fh).get("kind")
+
+
+def replay_mcheck(path: str) -> int:
+    """A model-checker counterexample: its explicit schedule replays on
+    the checker's own universe (the CPU oracle), on no device."""
+    from raft_tpu_torch.verify import mcheck
+    art = mcheck.load_reproducer(path)
+    missing = [k for k in ("bounds", "schedule", "violation", "n_ticks")
+               if k not in art]
+    if missing:
+        log(f"{path}: not a complete verify/mcheck reproducer (no "
+            f"{missing})")
         return 2
+    log(f"replaying {path} on the model checker's universe: "
+        f"{art['n_ticks']} scheduled tick(s), mutant "
+        f"{art.get('mutant')!r}, expecting tick "
+        f"{art['violation']['tick']} leaf {art['violation']['leaf']!r}")
+    try:
+        rep = mcheck.replay(art)
+    except AssertionError as e:
+        log(f"REPLAY FAILED: {e}")
+        return 1
+    log(f"replay ok: tick {rep['tick']} — {rep['predicates']}")
+    return 0
+
+
+def replay(path: str, n_groups: int, device: str) -> int:
     cfg, artifact = nsearch.load_reproducer(path)
     n_ticks = artifact["n_ticks"]
     # The artifact's own run shape wins: the violating group must exist.
@@ -135,6 +160,8 @@ def main(argv=None) -> int:
                          "the artifact and verify it replays")
     args = ap.parse_args(argv)
 
+    if args.replay and artifact_kind(args.replay) == "mcheck-reproducer":
+        return replay_mcheck(args.replay)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         log("no CUDA device: pass --device cpu to run on the CPU")

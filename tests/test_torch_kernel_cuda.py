@@ -573,3 +573,54 @@ def test_two_cards_launch_on_their_own_context(cuda):
             got = kmesh.prun_sharded(cfg, state.init(cfg, device=d0), 40,
                                      (d0, d1), chunk_ticks=20)
         assert_trees_equal(want, got)
+
+
+@pytest.mark.cuda
+def test_launch_plans_and_observed_streams_on_card(cuda):
+    """The static audit's card passes: `kernel_plan_problems` (the
+    launcher's block shapes against the shared-memory model) is empty
+    for the headline, clients and nemesis layouts; the streamed pipeline
+    on the card and over two shards of it, and the sharded launches,
+    under an observed capture (`verify.hazards.capture(observe=True)`,
+    every stream call recorded and made) give the uncaptured runs' bits
+    and traces with no hazard."""
+    from raft_tpu_torch.analysis import contracts
+    from raft_tpu_torch.parallel import cohort, kmesh
+    from raft_tpu_torch.verify import hazards
+    runs = [("headline", RaftConfig(seed=42), 100_000, 0),
+            ("clients", RaftConfig(**BENCH_CLIENTS), 50_000,
+             recorder.RING),
+            ("24 clauses", RaftConfig(n_groups=64, nemesis=bounded(24),
+                                      **NEM_BASE), 64, 0)]
+    assert contracts.kernel_plan_problems(runs) == []
+    base = RaftConfig(n_groups=3000, pack_bools=True, pack_ring=True,
+                      **CONFIG4)
+    cfg = dataclasses.replace(base, stream_groups=True, cohort_blocks=1)
+    st0 = state.init(base, device=cuda)
+    for mesh in (None, (cuda, cuda)):
+        def streamed():
+            if mesh is None:
+                return cohort.prun_streamed(cfg, st0, 60, chunk_ticks=20)
+            return cohort.prun_streamed_sharded(cfg, st0, 60, mesh,
+                                                chunk_ticks=20)
+        want = streamed()
+        events = []
+        with hazards.capture(events, observe=True):
+            got = streamed()
+        assert_trees_equal(want, got)
+        assert hazards.check_trace(events, 3000) == []
+        n = hazards.counts(events)
+        assert n["h2d"] == n["d2h"] == 3   # one window slice each
+        assert n["launches"] == 3 * n["h2d"] and n["record_streams"] > 0
+    mesh = (cuda,) * 3
+    shards, g = kmesh.kinit_sharded(base, st0, mesh)
+    want = kmesh.kglobal_sharded(base, kmesh.kstep_sharded(
+        base, shards, 0, 30, mesh), g, mesh)
+    shards, g = kmesh.kinit_sharded(base, st0, mesh)
+    events = []
+    with hazards.capture(events, observe=True):
+        got = kmesh.kglobal_sharded(base, kmesh.kstep_sharded(
+            base, shards, 0, 30, mesh), g, mesh)
+    assert_trees_equal(tuple(want), tuple(got))
+    assert hazards.check_trace(events, 0) == []
+    assert hazards.counts(events)["launches"] == 3

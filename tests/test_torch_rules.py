@@ -24,7 +24,8 @@ PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py",
      ROOT / "scripts" / "torch_nemesis_search.py",
      ROOT / "scripts" / "torch_bench_history.py",
-     ROOT / "scripts" / "torch_multichip_sweep.py"]
+     ROOT / "scripts" / "torch_multichip_sweep.py",
+     ROOT / "scripts" / "torch_static_audit.py"]
 
 
 def _imported_roots(path: Path) -> set:

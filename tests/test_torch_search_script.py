@@ -58,7 +58,8 @@ def test_script_seeded_violation_writes_a_replayable_artifact(tmp_path):
 
 
 def test_script_refusals(tmp_path, monkeypatch):
-    """An mcheck artifact, and the card when none is there."""
+    """An incomplete mcheck artifact (a complete one replays:
+    tests/test_torch_verify.py), and the card when none is there."""
     mcheck = tmp_path / "mcheck.json"
     mcheck.write_text(json.dumps({"kind": "mcheck-reproducer"}))
     out = _script("--device", "cpu", "--replay", str(mcheck))
