@@ -104,7 +104,9 @@ launch counts set to 0 just before it and read just after:
    Heartbeat(every=1): exactly one chunk span per kernel launch (and one
    span per codec launch and per window's h2d, compute and d2h), each
    span's `device_ms` positive and their sum per run, with the heartbeat
-   spans' host time between launches, the run's CUDA-event total (within
+   spans' host time between launches and the host's gaps between the
+   spans (`gap` spans, `obs.trace.covered`: one before each chunk and
+   heartbeat and one at the end), the run's CUDA-event total (within
    2% + 1 ms), each heartbeat's `rounds_total` the wire's
    `kcommitted` at its tick (58,438,894 for the headline at 600), one
    `obs.manifest` record per run with its rates, card, power limit and
@@ -127,9 +129,13 @@ launch counts set to 0 just before it and read just after:
    launches; the clients run (flight ring on) over two shards; phase
    (f)'s packed million through `prun_streamed_sharded` over two shards
    (equal to (f)'s result, with its per-device split and overlap beside
-   (f)'s); `kernel.supported` refuses two shards on the card that fit
-   alone but not together; and a line says whether the two-card check
-   of tests/test_torch_kernel_cuda.py could run (it needs two cards);
+   (f)'s); the headline's first chunk from shards (`mesh.shard_state`
+   over every card, or two shards on the one card) returning shards,
+   each decoded on its own device, joined equal to the same run
+   gathered, with the first device's `max_memory_allocated` in each;
+   `kernel.supported` refuses two shards on the card that fit alone but
+   not together; and a line says whether the two-card check of
+   tests/test_torch_kernel_cuda.py could run (it needs two cards);
 (k) the static audit and the stream-ordering hazard prover
    (raft_tpu_torch/analysis/, verify/hazards.py): (k1)
    `analysis.startup_audit("static")` before phase 2's builds (the
@@ -144,7 +150,21 @@ launch counts set to 0 just before it and read just after:
    under `hazards.check_trace`, and a line of its event counts (h2d,
    launches, d2h, waits, record_streams, host syncs) and of its end to
    end seconds between the same run uncaptured before and after it; the
-   observed runs' launches join the kernels line's counts;
+   observed runs' launches join the kernels line's counts; the trace
+   sees `kernel.kinit`'s wire pairs (through the stream table) and each
+   launch's fresh outputs, and the two shards' first accumulators
+   `record_stream`ed for their own streams;
+(l) the kernel sweep (scripts/torch_kernel_sweep.py): its six pairwise
+   covering-array universes (k in {3, 4, 5}, L in {16, 32}, PreVote x
+   membership x transfer x reads x partition under crash and drop
+   churn), its --clients axis and its four nemesis cells at 1,024
+   groups x 120 ticks, each `kernel.prun` on the card against the plain
+   run loop from the same State (run on the host in worker processes
+   meanwhile; a nemesis cell's worker holds the CPU oracle to the plain
+   tick first): full State and Metrics at max abs err 0, the
+   exactly-once report clean with clients, the safety bit dropped in
+   exactly the known groups (one group of one universe, the JAX
+   package's own: `SWEEP_KNOWN_UNSAFE`); each axis's launches counted;
 7. a `kernels` JSON line: launches, times and bound of the fused chunk
    and the two codec kernels, and the same for each flag set's build by
    run (with each run's steady-state time: three launches more from its
@@ -166,6 +186,7 @@ import collections
 import dataclasses
 import itertools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -717,6 +738,175 @@ def search_and_triage(dev, head_400, n_head, hunt=HUNT,
     return launches, secs
 
 
+# Phase (l): scripts/torch_kernel_sweep.py's universes on the card, and
+# the groups whose safety bit the plain tick itself drops there: group
+# 377 of the clients axis's reads+partition universe breaks leader
+# completeness at tick 105 in the JAX package's run as in the port's
+# plain tick, kernel and CPU oracle (ROADMAP, queue 3)
+SWEEP_GROUPS, SWEEP_TICKS, SWEEP_SEED = 1024, 120, 1000
+SWEEP_KNOWN_UNSAFE = {("clients", "reads+partition+clients"): [377]}
+
+
+class Children:
+    """Worker processes that run `cmds`, at most `limit` at a time, each
+    with its standard error in a file of `logs` and with no card visible.
+    `wait(i)` waits for the i-th (starting the next ones meanwhile) and
+    raises if it failed; `close()` kills those still running and waits
+    for every one, so that none outlives the script."""
+
+    def __init__(self, cmds, limit: int, logs: Path):
+        self.todo = list(enumerate(cmds))
+        self.limit, self.logs = limit, logs
+        self.live, self.rc = {}, {}
+        self.env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+
+    def top_up(self):
+        for i, proc in list(self.live.items()):
+            if proc.poll() is not None:
+                self.rc[i] = proc.returncode
+                del self.live[i]
+        while self.todo and len(self.live) < self.limit:
+            i, cmd = self.todo.pop(0)
+            with open(self.logs / f"{i}.err", "w") as err:
+                self.live[i] = subprocess.Popen(
+                    cmd, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                    stderr=err, env=self.env)
+
+    def wait(self, i: int):
+        while i not in self.rc:
+            self.top_up()
+            time.sleep(0.05)
+        if self.rc[i]:
+            log = (self.logs / f"{i}.err").read_text()[-4000:]
+            raise RuntimeError(f"worker {i} exited with {self.rc[i]}:\n{log}")
+
+    def close(self):
+        self.todo.clear()
+        for proc in self.live.values():
+            proc.kill()
+        for i, proc in self.live.items():
+            self.rc[i] = proc.wait()
+        self.live.clear()
+
+
+def live_children() -> list[str]:
+    """The command lines of this process's child processes that are still
+    there (running or not yet waited for), from /proc."""
+    me, found = str(os.getpid()), []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            if fields[1] == me:
+                cmd = (stat.parent / "cmdline").read_bytes().replace(
+                    b"\0", b" ").decode(errors="replace")
+                found.append(f"{stat.parent.name} [{fields[0]}] {cmd}")
+        except (OSError, IndexError):
+            continue
+    return found
+
+
+def sweep_reference(task: str, out: str) -> int:
+    """Phase (l)'s worker: the reference half of one universe on the CPU
+    (`torch_kernel_sweep.reference_on_cpu` on the pickled (config,
+    groups, ticks, oracle) in `task`), pickled to `out`."""
+    import pickle
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_kernel_sweep as sweep
+    with open(task, "rb") as f:
+        cfg, groups, ticks, oracle = pickle.load(f)
+    result = sweep.reference_on_cpu(cfg, groups, ticks, oracle)
+    with open(out + ".part", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(out + ".part", out)
+    return 0
+
+
+def sweep_on_card(dev):
+    """Phase (l): the kernel sweep's six covering-array universes, its
+    --clients axis and its four nemesis cells at `SWEEP_GROUPS` x
+    `SWEEP_TICKS`, each universe the kernel on the card (`kernel.prun`,
+    each axis's launch counts set to 0 just before it and read just
+    after) against the plain run loop from the same State, run on the
+    host meanwhile in worker processes (`chip_smoke.py --sweep-reference`,
+    each waited for; a nemesis cell's worker first holds the CPU oracle
+    to the plain tick): full State and Metrics at max abs err 0, the
+    exactly-once report clean with clients, and the safety bit dropped in
+    exactly the groups `SWEEP_KNOWN_UNSAFE` names. Returns {"launches":
+    {axis: {kernel: n}}, "universes": [...], "axes": [...], "seconds":
+    s}."""
+    import pickle
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_kernel_sweep as sweep
+    from raft_tpu_torch.clients.workload import exactly_once_report
+    from raft_tpu_torch.sim import kernel, state
+
+    sweep._check_pairwise(sweep.ROWS)
+    t0 = time.time()
+    tasks = [(axis, sweep.universe_name(n, clients), cfg)
+             for axis, clients in (("base", False), ("clients", True))
+             for n, cfg in enumerate(sweep.sweep_configs(SWEEP_SEED,
+                                                         clients))]
+    tasks += [("nemesis", name, cfg) for name, cfg in
+              sweep.nemesis_configs(SWEEP_SEED, SWEEP_TICKS)]
+    report = {"launches": {}, "universes": [], "axes": []}
+    workers = max(1, min(len(tasks), (os.cpu_count() or 2) - 1))
+    tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
+    cmds = []
+    for i, (axis, _, cfg) in enumerate(tasks):
+        with open(tmp / f"{i}.task", "wb") as f:
+            pickle.dump((cfg, SWEEP_GROUPS, SWEEP_TICKS, axis == "nemesis"),
+                        f)
+        cmds.append([sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--sweep-reference", str(tmp / f"{i}.task"),
+                     str(tmp / f"{i}.out")])
+    pool = Children(cmds, workers, tmp)
+    try:
+        pool.top_up()
+        got = {}
+        for axis in ("base", "clients", "nemesis"):
+            reset_counts(kernel)
+            for i, (a, _, cfg) in enumerate(tasks):
+                if a == axis:
+                    got[i] = to_host(sweep.kernel_run(cfg, SWEEP_GROUPS,
+                                                      SWEEP_TICKS, dev))
+                    pool.top_up()
+            report["launches"][axis] = counts(kernel)
+            report["axes"].append(axis)
+        for i, (axis, name, cfg) in enumerate(tasks):
+            pool.wait(i)
+            with open(tmp / f"{i}.out", "rb") as f:
+                st_np, m_np, div, secs = pickle.load(f)
+            plain = (state.from_numpy(st_np, "cpu"),
+                     state.from_numpy(m_np, "cpu"))
+            e = max_abs_err(plain, got[i])
+            unsafe = torch.nonzero(plain[1].safety == 0).flatten().tolist()
+            eo_ok, eo_why = (exactly_once_report(cfg, *plain)
+                             if cfg.clients_u32 else (True, ""))
+            want = SWEEP_KNOWN_UNSAFE.get((axis, name), [])
+            if e or div is not None or unsafe != want or not eo_ok:
+                raise AssertionError(
+                    f"(l) {axis} {name} k={cfg.k} L={cfg.log_cap}: max abs "
+                    f"err {e}, oracle {div}, unsafe groups {unsafe} (known "
+                    f"{want}), exactly-once {eo_why}")
+            report["universes"].append({
+                "axis": axis, "universe": name, "k": cfg.k,
+                "log_cap": cfg.log_cap, "seed": cfg.seed, "max_abs_err": e,
+                "unsafe_groups": unsafe, "reference_s": secs})
+            print(f"[l] {axis} {name} seed={cfg.seed} k={cfg.k} "
+                  f"L={cfg.log_cap}: max abs err 0 on full State and "
+                  f"Metrics" + (", oracle == plain on 8 groups"
+                                if axis == "nemesis" else "")
+                  + (f", safety dropped in the known groups {unsafe}"
+                     if unsafe else ", safety held")
+                  + (f", {eo_why}" if cfg.clients_u32 else "")
+                  + f" (reference on the host {secs:.1f} s)", flush=True)
+    finally:
+        pool.close()
+        shutil.rmtree(tmp)
+    report["seconds"] = time.time() - t0
+    return report
+
+
 # Phase (i): the runs traced on the card and the manifest segment each
 # records under (bench.py's names; the history trends the first four).
 OBS_RUNS = (("headline", "throughput"), ("config-4", "config-4 fault run"),
@@ -727,9 +917,10 @@ HEADLINE_ROUNDS = 58_438_894   # every chip run since the first
 
 
 def near(a, total) -> bool:
-    """A run's chunk spans' device time plus its heartbeats' host time
-    (the card idles while the host reads the lanes) against the run's
-    CUDA-event total: within 2% + 1 ms."""
+    """A run's chunk spans' device time plus its heartbeats' and gaps'
+    host time (the card idles while the host reads the lanes and queues
+    the next launch) against the run's CUDA-event total: within 2% +
+    1 ms."""
     return abs(a - total) <= 0.02 * total + 1.0
 
 
@@ -804,15 +995,17 @@ def observability(dev, power_w, obs_dir, tracer, by_label, wire, main,
             host_ms = [e["dur"] / 1e3 for e in chunks]
             beat_ms = sum(e["dur"] / 1e3 for e in spans_of(
                 tracer.events[n0:], "heartbeat "))
+            gaps = spans_of(tracer.events[n0:], "gap ")
+            gap_ms = sum(e["dur"] / 1e3 for e in gaps)
             n = N_TICKS // CHUNK
             if not (len(chunks) == kernel.kstep.launches == n
-                    and min(dev_ms) > 0
-                    and near(sum(dev_ms) + beat_ms, total)):
+                    and len(gaps) == 2 * n + 1 and min(dev_ms) > 0
+                    and near(sum(dev_ms) + beat_ms + gap_ms, total)):
                 raise AssertionError(
                     f"(i) {label}: {len(chunks)} chunk spans for "
-                    f"{kernel.kstep.launches} launches, device ms {dev_ms} "
-                    f"and {beat_ms:.3f} ms of heartbeats against a total "
-                    f"of {total:.3f}")
+                    f"{kernel.kstep.launches} launches, device ms {dev_ms}, "
+                    f"{beat_ms:.3f} ms of heartbeats and {gap_ms:.3f} ms "
+                    f"in {len(gaps)} gaps against a total of {total:.3f}")
             last = main[label][0][-1]
             if words_err(leaves[0], last[0]) or words_err(leaves[1], last[1]):
                 raise AssertionError(f"(i) {label}: the traced run differs "
@@ -853,8 +1046,9 @@ def observability(dev, power_w, obs_dir, tracer, by_label, wire, main,
                              "bound": stamp["bound"]}
             print(f"[i] {label} {g} groups: {n} chunk spans, device ms "
                   f"{report[label]['device_ms']} (sum {sum(dev_ms):.2f}, "
-                  f"with the heartbeats' {beat_ms:.2f}, against the run's "
-                  f"events {total:.2f}), host ms "
+                  f"with the heartbeats' {beat_ms:.2f} and the {len(gaps)} "
+                  f"gaps' {gap_ms:.2f}: {sum(dev_ms) + beat_ms + gap_ms:.2f} "
+                  f"against the run's events {total:.2f}), host ms "
                   f"{report[label]['host_ms']}, enqueue ms "
                   f"{report[label]['enqueue_ms']}, allocation spans ms "
                   f"{span_ms(tracer.events[n0:], 'kstep alloc')}; "
@@ -881,8 +1075,10 @@ def observability(dev, power_w, obs_dir, tracer, by_label, wire, main,
         ev = tracer.events[n0:]
         spans = {k: spans_of(ev, k)
                  for k in ("chunk cuda ", "wire_pack cuda", "wire_unpack cuda",
-                           "h2d c", "compute c", "d2h c", "heartbeat ")}
+                           "h2d c", "compute c", "d2h c", "heartbeat ",
+                           "gap ")}
         beat_ms = sum(e["dur"] / 1e3 for e in spans["heartbeat "])
+        gap_ms = sum(e["dur"] / 1e3 for e in spans["gap "])
         got = counts(kernel)
         n_win = len(cohort.cohort_windows(scfg, STREAM_GROUPS))
         dev_ms = [e["args"]["device_ms"] for e in spans["chunk cuda "]]
@@ -895,16 +1091,18 @@ def observability(dev, power_w, obs_dir, tracer, by_label, wire, main,
                 == 2 * n_win
                 and all(len(spans[k]) == n_win
                         for k in ("h2d c", "compute c", "d2h c"))
-                and min(dev_ms) > 0
-                and near(sum(dev_ms) + beat_ms, 1e3 * stats["compute_s"])
+                and len(spans["gap "]) == 3 * n_win and min(dev_ms) > 0
+                and near(sum(dev_ms) + beat_ms + gap_ms,
+                         1e3 * stats["compute_s"])
                 and len(hb) == n_win
                 and sum(b["rounds_total"] for b in hb) == rounds
                 and all(b["tick"] == CHUNK for b in hb)):
             raise AssertionError(
                 f"(i) streamed: spans "
                 f"{ {k: len(v) for k, v in spans.items()} }, launches {got}, "
-                f"device ms sum {sum(dev_ms):.3f} and "
-                f"{beat_ms:.3f} ms of heartbeats against "
+                f"device ms sum {sum(dev_ms):.3f}, "
+                f"{beat_ms:.3f} ms of heartbeats and {gap_ms:.3f} ms of "
+                f"gaps against "
                 f"{1e3 * stats['compute_s']:.3f}, {len(hb)} heartbeats "
                 f"summing {sum(b['rounds_total'] for b in hb)} of {rounds}")
         secs = sum(dev_ms) / 1e3
@@ -935,7 +1133,8 @@ def observability(dev, power_w, obs_dir, tracer, by_label, wire, main,
               f"{len(spans['wire_pack cuda'])} codec spans, {n_win} h2d / "
               f"compute / d2h spans on the stream lanes; launches {got}; "
               f"device ms sum {sum(dev_ms):.2f}, with the heartbeats' "
-              f"{beat_ms:.2f}, against the pipeline's compute "
+              f"{beat_ms:.2f} and the {len(spans['gap '])} gaps' "
+              f"{gap_ms:.2f}, against the pipeline's compute "
               f"{1e3 * stats['compute_s']:.2f}; {n_win} heartbeats "
               f"summing {rounds} rounds; overlap "
               f"{stats['overlap_efficiency_measured']:.4f} (traced); "
@@ -1025,6 +1224,12 @@ def multi_device(dev, by_label, starts, main, f_out):
     - (j4) phase (f)'s packed million through `prun_streamed_sharded`
       over two shards on the card: equal to (f)'s result; its rounds/s,
       per-device split and overlap beside (f)'s;
+    - (j7) shards in, shards out: the headline's first chunk from
+      `mesh.shard_state` over the mesh of every card (two shards on the
+      card when there is one), each State shard decoded on its own
+      device and the Metrics on the first: joined, equal to the same
+      run gathered and to phase 5's chunk; `max_memory_allocated` of the
+      first device in each;
     - (j5) `kernel.supported` refuses two shards on the card whose
       launches together exceed its budget though each alone fits, and
       prints the resident ceiling over two cards of that budget (the
@@ -1034,10 +1239,12 @@ def multi_device(dev, by_label, starts, main, f_out):
       with two cards: one line says whether it could.
 
     Returns {"launches": {run: {kernel: n}}, "ms": {run: ms per sharded
-    launch}, "single_ms": phase 5's ms of the same first chunk}."""
+    launch}, "single_ms": phase 5's ms of the same first chunk,
+    "peak_bytes": (j7)'s first-device peaks}."""
     from raft_tpu_torch.obs import recorder
-    from raft_tpu_torch.parallel import cohort, kmesh
-    from raft_tpu_torch.parallel.mesh import make_mesh, placement
+    from raft_tpu_torch.parallel import cohort, groups, kmesh
+    from raft_tpu_torch.parallel.mesh import (make_mesh, placement,
+                                              shard_state)
     from raft_tpu_torch.sim import kernel, run, state
 
     report = {"launches": {}, "ms": {}, "new_segments_retries": []}
@@ -1183,6 +1390,49 @@ def multi_device(dev, by_label, starts, main, f_out):
           f"{[round(x, 4) for x in per_dev]}", flush=True)
     del out
 
+    # (j7) shards in, shards out: each shard decoded on its own device
+    mesh = make_mesh() if torch.cuda.device_count() > 1 else (dev,) * 2
+    st0 = starts["headline"]
+    shards_in = shard_state(st0, mesh)
+    first = placement(g, mesh)[0][0]   # cuda:0, its index resolved
+    outs, peak, launched = {}, {}, {}
+    for label, st_in in (("shards", shards_in), ("gathered", st0)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(first)
+        before = torch.cuda.memory_allocated(first)
+        reset_counts(kernel)
+        outs[label] = kmesh.prun_sharded(cfg, st_in, CHUNK, mesh)
+        torch.cuda.synchronize()
+        launched[label] = counts(kernel)
+        peak[label] = (torch.cuda.max_memory_allocated(first), before)
+    del shards_in
+    st_s, m_s = outs["shards"]
+    homes = [s.alive_prev.device for s in st_s]
+    e = max_abs_err(outs["gathered"], (groups.cat_states(st_s, first), m_s))
+    e = max(e, max_abs_err(outs["gathered"], kernel.kfinish(cfg, head, g)))
+    if e or homes != [d for d, _, _ in placement(g, mesh)] \
+            or m_s.committed.device != first \
+            or launched["shards"]["fused_chunk"] != len(mesh):
+        raise AssertionError(f"(j7) shards out over {len(mesh)} shards: max "
+                             f"abs err {e}, shards on {homes}, launches "
+                             f"{launched}")
+    report["launches"]["j7"] = launched["shards"]
+    report["peak_bytes"] = {k: {"max_memory_allocated": v[0],
+                                "allocated_before": v[1]}
+                            for k, v in peak.items()}
+    print(f"[j7] headline {g} groups in {len(mesh)} shards "
+          f"({[str(d) for d in mesh]}), shards out: each State shard on its "
+          f"own device {[str(d) for d in homes]}, Metrics on {first}; "
+          f"joined, max abs err 0 against the gathered run and phase 5's "
+          f"chunk; max_memory_allocated on {first}: shards out "
+          f"{peak['shards'][0]} B ({peak['shards'][0] - peak['shards'][1]} "
+          f"B over the {peak['shards'][1]} B allocated before it), gathered "
+          f"{peak['gathered'][0]} B ({peak['gathered'][0] - peak['gathered'][1]}"
+          f" B over {peak['gathered'][1]} B); byte model at the run's end "
+          f"{kernel.mesh_hbm_bytes(cfg, g, mesh, shards_out=True)[first]} B "
+          f"/ {kernel.mesh_hbm_bytes(cfg, g, mesh)[first]} B", flush=True)
+    del outs, st_s, m_s
+
     # (j5) two shards on one card share its budget
     card = torch.device("cuda", 0)
     budget = kernel.hbm_budget(card)
@@ -1312,7 +1562,13 @@ def main(argv=None) -> int:
                     help="keep phase (i)'s trace, heartbeat and manifest "
                          "in this directory (default: a temporary "
                          "directory, removed at the end)")
+    ap.add_argument("--sweep-reference", nargs=2, metavar=("TASK", "OUT"),
+                    help="phase (l)'s worker: run one pickled universe's "
+                         "reference half on the CPU and pickle the result "
+                         "to OUT")
     args = ap.parse_args(argv)
+    if args.sweep_reference:
+        return sweep_reference(*args.sweep_reference)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1922,6 +2178,7 @@ def main(argv=None) -> int:
     sharded = multi_device(dev, by_label, starts, main, f_out)
     paths["sharded"] = sum(sharded["launches"][k]["fused_chunk"]
                            for k in ("j1", "j2", "j3", "j4"))
+    paths["shards_out"] = sharded["launches"]["j7"]["fused_chunk"]
     print(f"[j] multi-device drivers: {time.time() - t:.1f} s; launches "
           f"{sharded['launches']}", flush=True)
 
@@ -1934,6 +2191,15 @@ def main(argv=None) -> int:
                             for v in observed["launches"].values())
     print(f"[k] launch plans and observed streams: {time.time() - t:.1f} s "
           f"({card}); launches {observed['launches']}", flush=True)
+
+    # (l) the kernel sweep's universes on the card
+    sweep = sweep_on_card(dev)
+    paths["sweep"] = sum(v["fused_chunk"] for v in sweep["launches"].values())
+    print(f"[l] kernel sweep: axes {sweep['axes']}, "
+          f"{len(sweep['universes'])} universes at {SWEEP_GROUPS} groups x "
+          f"{SWEEP_TICKS} ticks, every one max abs err 0; "
+          f"{sweep['seconds']:.1f} s ({card}); launches {sweep['launches']}",
+          flush=True)
 
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with
@@ -1973,9 +2239,12 @@ def main(argv=None) -> int:
            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
            "library_ms": None,
            "paths": paths,
+           "sweep": {"axes": sweep["axes"],
+                     "universes": sweep["universes"]},
            "sharded": {"launches": sharded["launches"],
                        "ms_per_launch": sharded["ms"],
                        "single_device_ms": sharded["single_ms"],
+                       "shards_out_peak_bytes": sharded["peak_bytes"],
                        "new_segments_retries":
                            sharded["new_segments_retries"]},
            "instantiations": [
@@ -1997,6 +2266,9 @@ def main(argv=None) -> int:
     print(f"[7] memory {json.dumps(memory)}", flush=True)
     print(f"[7] near the ceiling {json.dumps(near)}", flush=True)
     print(f"[7] total {time.time() - t_start:.1f} s", flush=True)
+    left = live_children()
+    if left:
+        raise AssertionError(f"child processes still there: {left}")
     print(card)
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {

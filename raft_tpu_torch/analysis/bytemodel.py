@@ -25,8 +25,9 @@ must agree exactly:
 3. `kernel.wire_words_per_group`, `working_words_per_group`,
    `acc_words` and `hbm_bytes`, and the ceilings built on them, on one
    card and sharded (`_mesh_ceilings`: over distinct cards, shards
-   sharing one card, both with the whole fleet's gather and finish on
-   the first card, and the streamed pipeline per device).
+   sharing one card, each with the whole fleet's gather and finish on
+   the first card or returning shards, each card finishing its own,
+   and the streamed pipeline per device).
 
 The resident model (`resident_bytes_model`) prices what one group keeps
 between runs under the narrow dials, four ways. The port carries the
@@ -293,17 +294,24 @@ def _ceilings(cfg, ring, launch_words, acc_bytes_words, rest, problems,
 AUDIT_MESH_SIZES = (2, 4)
 
 
-def _first_card_bytes(g: int, n: int, shared: bool, w: dict) -> int:
+def _first_card_bytes(g: int, n: int, shared: bool, w: dict,
+                      shards_out: bool = False) -> int:
     """Derived bytes on the first card of a resident run of `g` groups
     sharded over `n` devices (all on that card when `shared`): the
-    launches it holds, the gather there, and the whole fleet's finish,
-    whichever is largest. The first shard, ceil(g / n) groups, is the
-    largest, so no other card needs more."""
+    launches it holds, and the run's end, whichever is largest: the
+    gather there and the whole fleet's finish, or with `shards_out` the
+    finish of the shards it holds beside the fleet's Metrics (its lanes
+    twice, the accumulators stacked and reduced). The first shard,
+    ceil(g / n) groups, is the largest, so no other card needs more."""
     step = -(-g // n)
     spans = [min(step, g - s0) for s0 in range(0, g, step)]
     launch = [4 * (w["launch"] * s + w["residency"] * w["acc"])
               for s in spans]
     here = launch if shared else launch[:1]
+    if shards_out:
+        fin = [w["finish"] * s + w["fleet"] for s in spans]
+        return max(sum(here), sum(fin if shared else fin[:1])
+                   + 2 * w["lanes"] * g + 4 * (len(spans) + 1) * w["acc"])
     pair = [4 * (w["rest"] * s + w["acc"]) for s in spans]
     gather = 0
     if len(spans) > 1:
@@ -313,13 +321,13 @@ def _first_card_bytes(g: int, n: int, shared: bool, w: dict) -> int:
 
 
 def _derived_boundary(n: int, shared: bool, w: dict, budget: int,
-                      top: int) -> int:
+                      top: int, shards_out: bool = False) -> int:
     """The most groups in [0, top] whose `_first_card_bytes` fit
     `budget`."""
     lo, hi = 0, top
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if _first_card_bytes(mid, n, shared, w) <= budget:
+        if _first_card_bytes(mid, n, shared, w, shards_out) <= budget:
             lo = mid
         else:
             hi = mid - 1
@@ -330,8 +338,10 @@ def _mesh_ceilings(cfg, ring, w, ceiling, streamed, problems):
     """The sharded forms at the audit budgets, each against the derived
     words: a resident run over N distinct cards, and over N shards
     sharing one card, fits while the first card holds its launches and
-    the whole fleet's gather and finish (`_first_card_bytes`, the finish
-    from `resident_bytes_model`'s wide bytes); the exact
+    the whole fleet's gather and finish, or, returning shards, the
+    finish of its own shards and the fleet's Metrics
+    (`_first_card_bytes`, the finish from `resident_bytes_model`'s wide
+    bytes, the lanes from the Metrics' `[G]` leaves); the exact
     `supported(mesh=...)` boundary (`kernel.mesh_ceiling_groups`) must be
     that, and at most N x one card's launch ceiling. The streamed window
     pipeline holds `stream_blocks_per_device` blocks a card, and the
@@ -346,7 +356,8 @@ def _mesh_ceilings(cfg, ring, w, ceiling, streamed, problems):
             res["state_bytes_narrow"] if state_mod.narrow_active(cfg)
             else 0),
         fleet=4 * (w["acc"] + kernel.acc_words(
-            dataclasses.replace(cfg, wire_hist=True))))
+            dataclasses.replace(cfg, wire_hist=True))),
+        lanes=_lane_bytes(_trees(cfg, ring)[1]))
     if kernel.finish_bytes(rcfg, 1000, ring) != w["finish"] * 1000 + w[
             "fleet"]:
         problems.append(f"kernel.finish_bytes at 1000 groups "
@@ -357,18 +368,24 @@ def _mesh_ceilings(cfg, ring, w, ceiling, streamed, problems):
     for n in AUDIT_MESH_SIZES:
         cards = [torch.device("cuda", i) for i in range(n)]
         row = {}
-        for label, mesh, shared in (("ceiling_groups", cards, False),
-                                    ("shared_card_groups", [cards[0]] * n,
-                                     True)):
-            top = kernel.mesh_ceiling_groups(rcfg, mesh, ring, hbm=B)
-            want = _derived_boundary(n, shared, w, B, n * ceiling)
-            exact = (kernel.supported(rcfg, top, ring, hbm=B, mesh=mesh)
+        for label, mesh, shared, so in (
+                ("ceiling_groups", cards, False, False),
+                ("shared_card_groups", [cards[0]] * n, True, False),
+                ("shards_out_ceiling_groups", cards, False, True),
+                ("shards_out_shared_card_groups", [cards[0]] * n, True,
+                 True)):
+            top = kernel.mesh_ceiling_groups(rcfg, mesh, ring, hbm=B,
+                                             shards_out=so)
+            want = _derived_boundary(n, shared, w, B, n * ceiling, so)
+            exact = (kernel.supported(rcfg, top, ring, hbm=B, mesh=mesh,
+                                      shards_out=so)
                      and not kernel.supported(rcfg, top + 1, ring, hbm=B,
-                                              mesh=mesh))
+                                              mesh=mesh, shards_out=so))
             if top != want or not exact or top > n * ceiling:
                 problems.append(
                     f"resident ceiling over {n} "
                     + ("shards on one card" if shared else "cards")
+                    + (", shards out," if so else "")
                     + f" {top} (exact boundary: {exact}) != {want} from "
                     f"the derived words, or above {n} x {ceiling}")
             row[label] = top

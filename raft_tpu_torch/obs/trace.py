@@ -24,6 +24,13 @@ health record every N launches of a long run.
   can be watched while it runs (`tail -f` the file). With a tracer
   installed each beat is a span too (`heartbeat <label>`): the card idles
   while the host reads the lanes, and the timeline shows for how long.
+- **Gaps**: inside a `covered(label)` block (`kernel.krun`, a streamed
+  window's launches), the host's time between the block's chunk spans
+  and heartbeats (queueing the next launch, handling the last one's
+  output, the drivers' own Python) is a span of its own, `gap <label>`
+  (category `CAT_GAP`), from the end of one to the start of the next
+  and at both ends of the block: the block's wall is its chunk spans,
+  heartbeats and gaps, end to end, with no untraced time between.
 
 With no tracer (no heartbeat) installed, every hook is a no-op that
 costs one attribute read, and nothing synchronises.
@@ -45,6 +52,7 @@ import torch
 CAT_PHASE = "phase"      # set-up, warm-up, timed regions; pipeline stages
 CAT_CHUNK = "chunk"      # one kernel launch
 CAT_SEGMENT = "segment"  # a whole measured run
+CAT_GAP = "gap"          # host time between a covered run's spans
 
 _NULL = contextlib.nullcontext()
 
@@ -56,6 +64,7 @@ class Tracer:
     def __init__(self):
         self._epoch = time.perf_counter()
         self._lock = threading.Lock()
+        self._run = threading.local()   # this thread's `covered` block
         self.events: list[dict] = []
 
     def now_us(self) -> float:
@@ -66,18 +75,49 @@ class Tracer:
         with self._lock:
             self.events.append(ev)
 
+    def _complete(self, name: str, cat: str, t0: float, t1: float,
+                  args: dict | None = None):
+        ev = {"name": name, "cat": cat, "ph": "X", "ts": t0,
+              "dur": t1 - t0, "pid": os.getpid(),
+              "tid": threading.get_ident() & 0x7FFFFFFF}
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
     @contextlib.contextmanager
-    def _span(self, name: str, cat: str, args: dict):
+    def _span(self, name: str, cat: str, args: dict, covers: bool = False):
+        """One complete span. With `covers` (a chunk span or a heartbeat)
+        inside a `covered` block, the gap since the block's last such
+        span ends where this one starts, and the next starts where this
+        one ends."""
+        run = self._run
+        top = covers and getattr(run, "at", None) is not None \
+            and not run.depth
         t0 = self.now_us()
+        if top:
+            self._complete(f"gap {run.label}", CAT_GAP, run.at, t0)
+            run.depth += 1
         try:
             yield args
         finally:
-            ev = {"name": name, "cat": cat, "ph": "X", "ts": t0,
-                  "dur": self.now_us() - t0, "pid": os.getpid(),
-                  "tid": threading.get_ident() & 0x7FFFFFFF}
-            if args:
-                ev["args"] = args
-            self._append(ev)
+            t1 = self.now_us()
+            self._complete(name, cat, t0, t1, args)
+            if top:
+                run.depth -= 1
+                run.at = t1
+
+    @contextlib.contextmanager
+    def _covered(self, label: str):
+        run = self._run
+        if getattr(run, "at", None) is not None:   # an enclosing block
+            yield
+            return
+        run.at, run.label, run.depth = self.now_us(), label, 0
+        try:
+            yield
+        finally:
+            self._complete(f"gap {label}", CAT_GAP, run.at, self.now_us())
+            run.at = None
 
     def span(self, name: str, cat: str = CAT_PHASE, **args):
         """Context manager recording one complete span around its body;
@@ -86,13 +126,13 @@ class Tracer:
         return self._span(name, cat, args)
 
     @contextlib.contextmanager
-    def _launch(self, name: str, device, args: dict):
+    def _launch(self, name: str, device, args: dict, covers: bool = False):
         events = None
         if device is not None and torch.device(device).type == "cuda":
             stream = torch.cuda.current_stream(device)
             events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
             events[0].record(stream)
-        with self._span(name, CAT_CHUNK, args):
+        with self._span(name, CAT_CHUNK, args, covers):
             t0 = self.now_us()
             yield args
             if events is not None:
@@ -199,6 +239,25 @@ def span(name: str, cat: str = CAT_PHASE, **args):
     return t._span(name, cat, args)
 
 
+def covered(label: str):
+    """A block whose host gaps between its chunk spans and heartbeats are
+    traced (`gap <label>` spans, module docstring), or a null context
+    with no tracer installed. Inside another block it adds nothing: the
+    outer block's gaps cover it."""
+    t = _TRACER
+    if t is None:
+        return _NULL
+    return t._covered(label)
+
+
+def _beat_span(label: str):
+    """The span of one heartbeat: a null context without a tracer."""
+    t = _TRACER
+    if t is None:
+        return _NULL
+    return t._span(f"heartbeat {label}", CAT_PHASE, {}, covers=True)
+
+
 def launch_span(name: str, device=None, **args):
     """A `CAT_CHUNK` span around one kernel launch on `device` (on a card:
     with its `device_ms`, closing after the launch ends), or a null
@@ -219,7 +278,7 @@ def chunk_span(engine: str, t0: int, n_ticks: int, device=None, **args):
         return _NULL
     return t._launch(f"chunk {engine} [{t0},{t0 + n_ticks})", device,
                      dict(engine=engine, t0=int(t0), n_ticks=int(n_ticks),
-                          **args))
+                          **args), covers=True)
 
 
 # ------------------------------------------------------------- heartbeat
@@ -341,7 +400,7 @@ def heartbeat(label: str, tick_at: int, metrics, flight=None):
     if hb is None:
         return None
     try:
-        with span(f"heartbeat {label}"):
+        with _beat_span(label):
             return hb.beat(label, tick_at, metrics, flight)
     except OSError as e:
         print(f"[heartbeat] write failed ({e}); continuing",
@@ -356,7 +415,7 @@ def heartbeat_wire(label: str, tick_at: int, cfg, leaves, g: int):
     if hb is None:
         return None
     try:
-        with span(f"heartbeat {label}"):
+        with _beat_span(label):
             return hb.beat_wire(label, tick_at, cfg, leaves, g)
     except OSError as e:
         print(f"[heartbeat] write failed ({e}); continuing",

@@ -161,7 +161,7 @@ def host_wire(cfg: RaftConfig, st: State | None,
                         Flight(*(a[:, s0:s1].to(dev) for a in flight)))
             else:
                 part = groups.take(st, metrics, flight, s0, s1, dev)
-            (wire, a), _ = kernel.kinit(cfg, *part)
+            (wire, a), _ = streams.cuda.kinit(cfg, *part)
             block = buf[at:at + rows * (s1 - s0)].view(rows, s1 - s0)
             block.copy_(wire)
             hw.parts[-1].append(len(hw.blocks))
@@ -178,13 +178,16 @@ def _launches(cfg, leaves, t0: int, n_ticks: int, chunk: int, ci: int,
               g: int, hw: HostWire, j: int):
     """Window `ci`'s launches on shard `j` (`kernel.krun`, each in a chunk
     span with the window's index): `n_ticks` ticks in chunks of `chunk`,
-    then a heartbeat over its `g` groups. Returns (leaves, launches)."""
+    then a heartbeat over its `g` groups, the host's time between them
+    traced as gaps. Returns (leaves, launches)."""
     n = len(hw.mesh)
     eng = sharded_engine(n)
     extra = {} if n == 1 else {"engine": eng, "shard": j}
-    leaves = kernel.krun(cfg, leaves, t0, n_ticks, chunk, cohort=ci, **extra)
-    trace.heartbeat_wire(f"{eng}:c{ci}" + ("" if n == 1 else f":d{j}"),
-                         t0 + n_ticks, cfg, leaves, g)
+    label = f"{eng}:c{ci}" + ("" if n == 1 else f":d{j}")
+    with trace.covered(label):
+        leaves = kernel.krun(cfg, leaves, t0, n_ticks, chunk, cohort=ci,
+                             **extra)
+        trace.heartbeat_wire(label, t0 + n_ticks, cfg, leaves, g)
     return leaves, -(-n_ticks // chunk)
 
 
@@ -314,6 +317,13 @@ def _stream_card(cfg, hw: HostWire, t0: int, n_ticks: int, chunk: int,
         ref_us = tracer.now_us()
 
     spans = {j: {"h2d": [], "compute": [], "d2h": []} for j in range(n)}
+    for j, lane in enumerate(lanes):
+        # A shard's accumulator comes from `kinit` on its card's current
+        # stream; its first launch reads it on the shard's own stream,
+        # and the launch's output replaces it.
+        if hw.accs[j] is not None and lane.comp != cs.current_stream(
+                hw.mesh[j]):
+            cs.record_stream(hw.accs[j], lane.comp)
     launches = 0
     nxt = stream_sched.put_window(hw, 0, lanes, pool)
     pending = {}   # shard -> (block, its result, the end of its launches)

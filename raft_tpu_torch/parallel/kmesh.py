@@ -27,10 +27,14 @@ on the one stream, as a one-card run's do.
 `kglobal_sharded` reduces the counters of the shards' wires (committed
 and safety lanes, `acc`'s election count, histogram and longest streak)
 on the mesh's first device: the same values as the single-device
-`kcommitted`, `kelections` and `khist`. `kfinish_sharded` gathers the
-shards there (`gather`: the wires side by side, the accumulators
-reduced) and calls `kernel.kfinish`. That device so holds the whole
-fleet at the run's end, and `kernel.mesh_hbm_bytes` budgets it so.
+`kcommitted`, `kelections` and `khist`. `kfinish_sharded` either gathers
+the shards there (`gather`: the wires side by side, the accumulators
+reduced) and calls `kernel.kfinish`, so that device holds the whole
+fleet at the run's end, or (`shards_out`, `finish_shards`) decodes each
+shard on its own device, as the JAX package's sharded `kfinish` keeps
+its State sharded: only the Metrics come together on the first device,
+the per-group lanes joined and the accumulators reduced.
+`kernel.mesh_hbm_bytes` budgets each way.
 """
 
 from __future__ import annotations
@@ -199,10 +203,44 @@ def gather(cfg: RaftConfig, shards, device):
     return whole, acc
 
 
+def finish_shards(cfg: RaftConfig, shards: list,
+                  metrics_base: Metrics | None = None,
+                  flight: bool = False):
+    """Each shard's `kernel.kfinish` (and `kflight`) on its own device:
+    (State shards, Metrics, Flight shards or None). The Metrics lie on
+    the first shard's device, its per-group lanes the shards' joined in
+    group order and the rest read off the shards' accumulators reduced
+    there (`reduce_acc`), with `metrics_base` folded in: the bits the
+    gathered `kfinish` gives. Consumes `shards`: each wire pair is
+    dropped once it is decoded."""
+    streams.cuda.join([a for sh in shards for a in sh])
+    dev0 = shards[0][0].device
+    acc = reduce_acc(cfg, [a for _, a in shards], dev0)
+    states, lanes, flights = [], [], []
+    while shards:
+        leaves = shards.pop(0)
+        n = leaves[0].shape[1]
+        st, m = kernel.kfinish(cfg, leaves, n)
+        states.append(st)
+        lanes.append(m)
+        if flight:
+            flights.append(kernel.kflight(cfg, leaves, n))
+        del leaves
+    per = {f: torch.cat([getattr(m, f).to(dev0) for m in lanes])
+           for f in groups.PER_GROUP if getattr(lanes[0], f) is not None}
+    m = kernel.kmetrics(cfg, per, acc, metrics_base)
+    return states, m, (flights if flight else None)
+
+
 def kfinish_sharded(cfg: RaftConfig, shards, g: int,
-                    metrics_base: Metrics | None = None):
+                    metrics_base: Metrics | None = None,
+                    shards_out: bool = False):
     """`kernel.kfinish` of the shards gathered on the first shard's
-    device (`gather`): the whole (State, Metrics) there."""
+    device (`gather`): the whole (State, Metrics) there; with
+    `shards_out`, (the State shards, each on its device, Metrics on the
+    first: `finish_shards`)."""
+    if shards_out:
+        return finish_shards(cfg, list(shards), metrics_base)[:2]
     return kernel.kfinish(cfg, gather(cfg, shards, shards[0][0].device), g,
                           metrics_base)
 
@@ -211,27 +249,33 @@ def prun_sharded(cfg: RaftConfig, st, n_ticks: int, mesh, t0: int = 0,
                  metrics: Metrics | None = None, flight: Flight | None = None,
                  chunk_ticks: int | None = None):
     """Drop-in for `kernel.prun` with the groups axis sharded over `mesh`:
-    the same (State, Metrics[, Flight]), the same bits, on the mesh's
-    first device. `st` is a whole State or its shards. The ticks run in
-    `kstep_sharded` launches of `chunk_ticks` (default: one launch).
-    Refuses a latched narrow state, and on a card a run `kernel.supported`
-    does not fit: the kernel's shape, on each card the launches of every
-    shard it holds within its budget, and on the first card the whole
-    fleet's gather and finish (`kernel.mesh_hbm_bytes`)."""
+    the same (State, Metrics[, Flight]), the same bits. `st` is a whole
+    State or its shards (`mesh.shard_state`, `checkpoint.load(mesh=)`).
+    A whole State comes back whole on the mesh's first device, with the
+    whole Flight; shards come back as shards, each State and Flight
+    shard decoded on its own device (`finish_shards`), the Metrics one
+    value on the first device. The ticks run in `kstep_sharded` launches
+    of `chunk_ticks` (default: one launch). Refuses a latched narrow
+    state, and on a card a run `kernel.supported` does not fit: the
+    kernel's shape, on each card the launches of every shard it holds
+    within its budget, and the run's end: on the first card the whole
+    fleet's gather and finish, or with shards out each card's finish of
+    its own (`kernel.mesh_hbm_bytes`)."""
     mesh = make_mesh(devices=mesh)
+    shards_out = not isinstance(st, state_mod.State)
     shards = as_shards(st, mesh)
     for sh in shards:
         state_mod.check_narrow_overflow(cfg, sh)
     g = sum(s.alive_prev.shape[0] for s in shards)
     ring = 0 if flight is None else flight.tick.shape[0]
     if any(d.type == "cuda" for d in mesh) and not kernel.supported(
-            cfg, g, ring, mesh=mesh):
+            cfg, g, ring, mesh=mesh, shards_out=shards_out):
         raise ValueError(
             "kmesh: " + ("" if kernel.shape_supported(cfg) else
                          f"{kernel.shape_refusal(cfg)}; ")
             + f"the shards' launches need "
-            f"{kernel.mesh_hbm_bytes(cfg, g, mesh, ring)} B by device, "
-            f"more than a card's budget")
+            f"{kernel.mesh_hbm_bytes(cfg, g, mesh, ring, shards_out)} B "
+            f"by device, more than a card's budget")
     leaves, g = kinit_sharded(cfg, shards, mesh, metrics, flight)
     del shards
     chunk = chunk_ticks or n_ticks
@@ -240,6 +284,9 @@ def prun_sharded(cfg: RaftConfig, st, n_ticks: int, mesh, t0: int = 0,
         step = min(chunk, end - at)
         leaves = kstep_sharded(cfg, leaves, at, step, mesh)
         at += step
+    if shards_out:
+        st2, m2, f2 = finish_shards(cfg, leaves, metrics, flight is not None)
+        return (st2, m2) if flight is None else (st2, m2, f2)
     whole = gather(cfg, leaves, mesh[0])
     del leaves   # the first device now holds the fleet: free the shards
     st2, m2 = kernel.kfinish(cfg, whole, g, metrics)

@@ -75,7 +75,8 @@ shared memory). The budgets are the memory free now,
 less a margin, per card: a run sharded over a mesh (`parallel/kmesh.py`,
 `parallel/cohort.py`) fits when each card holds every shard placed on it,
 and a resident one when its first card also holds the whole fleet's
-gather and finish.
+gather and finish, or, when the run returns shards (`shards_out`), when
+each card also holds the finish of its own shards.
 """
 
 from __future__ import annotations
@@ -526,18 +527,22 @@ def _device(d) -> torch.device:
 
 
 def mesh_hbm_bytes(cfg: RaftConfig, n_groups: int, mesh,
-                   ring: int = 0) -> dict:
+                   ring: int = 0, shards_out: bool = False) -> dict:
     """{device: bytes} of a run sharded over `mesh` (a sequence of
     devices, which may repeat). Under `stream_groups`, on each device the
     sum over the shards it holds of each shard's window pipeline
     (`cohort_hbm_bytes` over the mesh). Resident (`parallel.kmesh`
     `prun_sharded`), on each device the sum of the launches (`hbm_bytes`
-    of each span, `parallel.groups.spans`) of the shards it holds, and on
-    the first device the largest of that and the run's two ends there:
-    the gather (`kmesh.gather`: the whole wire pair beside the wire pairs
-    of the shards that device holds, and the copy of the largest shard
-    another device holds; none for one shard) and then, the shards
-    dropped, `finish_bytes` of the whole fleet."""
+    of each span, `parallel.groups.spans`) of the shards it holds, and
+    the larger of that and the run's end. A run that gathers ends on the
+    first device with the gather (`kmesh.gather`: the whole wire pair
+    beside the wire pairs of the shards that device holds, and the copy
+    of the largest shard another device holds; none for one shard) and
+    then, the shards dropped, `finish_bytes` of the whole fleet. A run
+    that returns shards (`shards_out`) ends on each device with the
+    `finish_bytes` of each shard it holds (a bound: a shard's pair goes
+    once it is decoded), and on the first device also with
+    `fleet_metrics_bytes`."""
     from raft_tpu_torch.parallel.groups import spans
     if cfg.stream_groups:
         first = min(n_groups, window_groups(cfg, len(mesh)))
@@ -553,8 +558,14 @@ def mesh_hbm_bytes(cfg: RaftConfig, n_groups: int, mesh,
         need[d] = need.get(d, 0) + b
     if cfg.stream_groups:
         return need
-    first, rest, pair = _device(mesh[0]), 4 * wire_words_per_group(
-        cfg, ring), 4 * acc_words(cfg)
+    first = _device(mesh[0])
+    if shards_out:
+        end = {first: fleet_metrics_bytes(cfg, n_groups, len(parts))}
+        for j, (s0, s1) in zip(held, parts):
+            d = _device(mesh[j])
+            end[d] = end.get(d, 0) + finish_bytes(cfg, s1 - s0, ring)
+        return {d: max(b, end[d]) for d, b in need.items()}
+    rest, pair = 4 * wire_words_per_group(cfg, ring), 4 * acc_words(cfg)
     gather = 0
     if len(parts) > 1:
         here = [_device(mesh[j]) == first for j in held]
@@ -568,19 +579,33 @@ def mesh_hbm_bytes(cfg: RaftConfig, n_groups: int, mesh,
     return need
 
 
+def fleet_metrics_bytes(cfg: RaftConfig, n_groups: int,
+                        n_shards: int) -> int:
+    """Device bytes of a shards-out finish's fleet-wide Metrics on the
+    first device: the per-group lanes twice (each shard's copied there,
+    then joined) and the shards' accumulators stacked beside their
+    reduction (`kmesh.reduce_acc`)."""
+    return 4 * (2 * _lanes(cfg) * n_groups
+                + (n_shards + 1) * acc_words(cfg))
+
+
 def mesh_ceiling_groups(cfg: RaftConfig, mesh, ring: int = 0,
-                        hbm: int | None = None) -> int:
+                        hbm: int | None = None,
+                        shards_out: bool = False) -> int:
     """The most groups a resident run sharded over `mesh` fits with every
     device's `mesh_hbm_bytes` in `hbm` bytes (default: `hbm_budget()` of
     the current card, for each device): the exact boundary of
     `supported(mesh=...)`. At most len(mesh) x `hbm_ceiling_groups` (the
-    launches alone, one shard a card); the first device's gather and
-    finish, which hold the whole fleet, bring it down."""
+    launches alone, one shard a card); a run that gathers is brought
+    down by the first device's gather and finish, which hold the whole
+    fleet, one that returns shards (`shards_out`) by each card's finish
+    of its own shards."""
     budget = hbm_budget() if hbm is None else hbm
     lo, hi = 0, len(mesh) * hbm_ceiling_groups(cfg, ring, budget)
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if max(mesh_hbm_bytes(cfg, mid, mesh, ring).values()) <= budget:
+        if max(mesh_hbm_bytes(cfg, mid, mesh, ring,
+                              shards_out).values()) <= budget:
             lo = mid
         else:
             hi = mid - 1
@@ -589,7 +614,8 @@ def mesh_ceiling_groups(cfg: RaftConfig, mesh, ring: int = 0,
 
 def supported(cfg: RaftConfig, n_groups: int | None = None, ring: int = 0,
               hbm: int | None = None, host: int | None = None,
-              state_on_host: bool = True, mesh=None) -> bool:
+              state_on_host: bool = True, mesh=None,
+              shards_out: bool = False) -> bool:
     """True iff the kernel takes the config (`shape_supported`) and, with
     `n_groups`, the run fits: resident, one launch in `hbm` bytes; under
     `stream_groups`, one window's pipeline in `hbm` and the run's host
@@ -598,8 +624,9 @@ def supported(cfg: RaftConfig, n_groups: int | None = None, ring: int = 0,
     the shards placed on it (`mesh_hbm_bytes`, summed over shards that
     share it) within its budget: two shards on one card share that
     card's `hbm`, they are not each granted it; resident, the first card
-    also holds the whole fleet's gather and finish. A CPU device of a
-    mesh is budgeted only against an `hbm` given."""
+    also holds the whole fleet's gather and finish, or with `shards_out`
+    each card the finish of its own shards. A CPU device of a mesh is
+    budgeted only against an `hbm` given."""
     if not shape_supported(cfg):
         return False
     if n_groups is None:
@@ -613,8 +640,8 @@ def supported(cfg: RaftConfig, n_groups: int | None = None, ring: int = 0,
         return (cohort_hbm_bytes(cfg, ring) if cfg.stream_groups
                 else hbm_bytes(cfg, n_groups, ring)) <= hbm
     return all(need <= (hbm_budget(d) if hbm is None else hbm)
-               for d, need in mesh_hbm_bytes(cfg, n_groups, mesh,
-                                             ring).items()
+               for d, need in mesh_hbm_bytes(cfg, n_groups, mesh, ring,
+                                             shards_out).items()
                if hbm is not None or d.type == "cuda")
 
 
@@ -673,6 +700,31 @@ def _encode(cfg: RaftConfig, st: State, m: Metrics,
     return wire, torch.cat(acc).to(I32)
 
 
+def _acc_metrics(cfg: RaftConfig, lanes: dict, acc: torch.Tensor) -> Metrics:
+    """Metrics of the per-group `lanes` (committed, leaderless, safety,
+    and the client lanes with clients; `[G]` each) and an `acc`, the
+    metrics as accumulated. Under wire_hist=False the histograms are
+    zeros of `HIST_SIZE` (nothing was tracked)."""
+    h = _hist_size(cfg, acc)
+
+    def rows(at):
+        if h:
+            return acc[at:at + h].clone()
+        return torch.zeros(HIST_SIZE, dtype=I32, device=acc.device)
+
+    cl = {}
+    if cfg.clients_u32:
+        cl = dict(client_acked=lanes["client_acked"],
+                  client_retries=lanes["client_retries"],
+                  client_hist=rows(h + 2),
+                  client_max_lat=acc[2 * h + 2].clone())
+    return Metrics(committed=lanes["committed"],
+                   leaderless=lanes["leaderless"],
+                   elections=acc[h].clone(), hist=rows(0),
+                   max_latency=acc[h + 1].clone(), safety=lanes["safety"],
+                   **cl)
+
+
 def _decode(cfg: RaftConfig, wire: torch.Tensor, acc: torch.Tensor):
     """(State, Metrics, Flight or None) of a working wire and its `acc`,
     the metrics as accumulated on them. Under wire_hist=False the
@@ -697,24 +749,8 @@ def _decode(cfg: RaftConfig, wire: torch.Tensor, acc: torch.Tensor):
     st = State(nodes=nodes, mailbox=mailbox,
                alive_prev=vals["alive_prev"] != 0,
                group_id=vals["group_id"].clone(), clients=clients)
-    h = _hist_size(cfg, acc)
-
-    def rows(at):
-        if h:
-            return acc[at:at + h].clone()
-        return torch.zeros(HIST_SIZE, dtype=I32, device=acc.device)
-
-    cl = {}
-    if cfg.clients_u32:
-        cl = dict(client_acked=vals["client_acked"].clone(),
-                  client_retries=vals["client_retries"].clone(),
-                  client_hist=rows(h + 2),
-                  client_max_lat=acc[2 * h + 2].clone())
-    met = Metrics(committed=vals["committed"].clone(),
-                  leaderless=vals["leaderless"].clone(),
-                  elections=acc[h].clone(), hist=rows(0),
-                  max_latency=acc[h + 1].clone(),
-                  safety=vals["safety"].clone(), **cl)
+    met = _acc_metrics(cfg, {f: vals[f].clone() for f in _LANES[1:]
+                             if f in vals}, acc)
     flight = None
     if ring:
         flight = Flight(*(vals["flight." + f].T.contiguous()
@@ -1021,6 +1057,24 @@ def kfinish(cfg: RaftConfig, leaves, g: int,
     if state_mod.narrow_active(cfg):
         st = state_mod.narrow_state(cfg, st)
         state_mod.check_narrow_overflow(cfg, st)
+    return st, _fold_base(cfg, m, metrics_base)
+
+
+def kmetrics(cfg: RaftConfig, lanes: dict, acc: torch.Tensor,
+             metrics_base: Metrics | None = None) -> Metrics:
+    """`kfinish`'s Metrics from the per-group `lanes` (committed,
+    leaderless, safety and, with clients, the client lanes; `[G]` each)
+    and an `acc`: what a sharded run's shards-out finish
+    (`parallel/kmesh.py`) gives with its shards' lanes joined and their
+    accumulators reduced."""
+    return _fold_base(cfg, _acc_metrics(cfg, lanes, acc), metrics_base)
+
+
+def _fold_base(cfg: RaftConfig, m: Metrics,
+               metrics_base: Metrics | None) -> Metrics:
+    """`m` with `metrics_base`'s election count, longest streak and
+    histograms folded in (under wire_hist=False its histograms pass
+    through unchanged)."""
     if metrics_base is not None:
         hist = (m.hist + metrics_base.hist if cfg.wire_hist
                 else metrics_base.hist)
@@ -1035,7 +1089,7 @@ def kfinish(cfg: RaftConfig, leaves, g: int,
                 client_hist=chist,
                 client_max_lat=torch.maximum(m.client_max_lat,
                                              metrics_base.client_max_lat))
-    return st, m
+    return m
 
 
 def kflight(cfg: RaftConfig, leaves, g: int) -> Flight | None:
@@ -1410,21 +1464,24 @@ def krun(cfg: RaftConfig, leaves, t0: int, n_ticks: int,
     inside an `obs.trace.chunk_span` of `engine` (default: "cuda" on a
     card, else "plain"; `span_args` added to its args) and,
     with a `label`, followed by an `obs.trace.heartbeat_wire` at the
-    launch's last tick. Both are no-ops unless a tracer or heartbeat is
-    installed. Returns the wire pair after the ticks (under `alias_wire`,
+    launch's last tick, the host's time between them traced as gaps
+    (`obs.trace.covered`). All are no-ops unless a tracer or heartbeat
+    is installed. Returns the wire pair after the ticks (under `alias_wire`,
     the input pair written over)."""
     if engine is None:
         engine = "cuda" if leaves[0].device.type == "cuda" else "plain"
     chunk = chunk_ticks or n_ticks
     at, end = int(t0), int(t0) + int(n_ticks)
-    while at < end:
-        step = min(chunk, end - at)
-        with trace.chunk_span(engine, at, step, leaves[0].device,
-                              **span_args):
-            leaves = streams.cuda.kstep(cfg, leaves, at, step)
-        at += step
-        if label is not None:
-            trace.heartbeat_wire(label, at, cfg, leaves, leaves[0].shape[1])
+    with trace.covered(label or engine):
+        while at < end:
+            step = min(chunk, end - at)
+            with trace.chunk_span(engine, at, step, leaves[0].device,
+                                  **span_args):
+                leaves = streams.cuda.kstep(cfg, leaves, at, step)
+            at += step
+            if label is not None:
+                trace.heartbeat_wire(label, at, cfg, leaves,
+                                     leaves[0].shape[1])
     return leaves
 
 

@@ -16,6 +16,8 @@ and never through `torch.cuda` directly:
 - the copies: `copy`, the non-blocking `copy_` between host and card
   (synchronous between host tensors), and `to_device`, a synchronous
   copy onto a CPU shard;
+- the wire form: `kinit` (`kernel.kinit`), whose accumulator a streamed
+  shard's first launch reads, on the card's current stream;
 - the launch: `kstep` (`kernel.kstep`), and `join`, which marks that the
   caller's stream now reads a shard's outputs (no call on the card).
 
@@ -89,6 +91,10 @@ class Cuda:
 
     def to_device(self, src, device, groups=None):
         return src.to(device, copy=True)
+
+    def kinit(self, cfg, st, metrics=None, flight=None):
+        from raft_tpu_torch.sim import kernel
+        return kernel.kinit(cfg, st, metrics, flight)
 
     def kstep(self, cfg, leaves, t0: int, n_ticks: int):
         from raft_tpu_torch.sim import kernel

@@ -13,7 +13,8 @@ replaces the table with a recorder:
 
 - `capture(events)`: fakes on CPU tensors. Streams and events are
   tokens, a copy is a plain CPU copy, a launch records itself and
-  returns its inputs. The real `cohort._stream_card`, `_stream_host`
+  returns new outputs as `kernel.kstep` does (its inputs, written over,
+  under `alias_wire`). The real `cohort._stream_card`, `_stream_host`
   and `kmesh.kstep_sharded` loops run on this box, byte for byte the
   shipped control flow.
 - `capture(events, observe=True)`: the real primitives, each recorded
@@ -50,10 +51,11 @@ into an event, `wait_event`, `wait_stream` and the host waits
 - **drain-coverage** / **put-coverage**: per pass over the fleet, the
   groups the d2h (h2d) copies move tile [0, G) exactly.
 
-The free rule covers the tensors whose allocation the trace saw (the
-window slices, the launches' outputs, the accumulators the harness
-places); the accumulators `kernel.kinit` makes before a run predate any
-trace.
+The free rule covers the tensors whose allocation the trace saw: the
+window slices, the launches' outputs (allocated on the launch's
+stream), the wire pairs `kernel.kinit` makes through the table (on the
+card's current stream), and the accumulators the harness places in
+their stead.
 
 `prove_schedulers()` runs the real loops over the grid of the JAX
 package's prover (cohort_blocks 1-3, devices 1, 2 and 4, windows 1-4;
@@ -66,8 +68,9 @@ a line of this file.
 
 Limits: the proof is over one grid point's program order at a time
 (the loops branch on shapes and dials only, which the grid sweeps);
-what the kernel does inside a launch, and the allocations inside
-`kernel.kstep`, are outside the trace.
+what the kernel does inside a launch, and `kernel.kstep`'s scratch
+(the working wire a packing dial unpacks, on the launch's stream), are
+outside the trace.
 """
 
 from __future__ import annotations
@@ -312,6 +315,13 @@ class _Recorder(streams.Cuda):
                    groups=groups)
         return t
 
+    def kinit(self, cfg, st, metrics=None, flight=None):
+        (wire, acc), g = self.real.kinit(cfg, st, metrics, flight)
+        dev = self._dev_of(wire)
+        for t in (wire, acc):
+            self._emit("alloc", self._cur(dev), dev, (self._buf(t, True),))
+        return (wire, acc), g
+
     def kstep(self, cfg, leaves, t0: int, n_ticks: int):
         dev = self._dev_of(leaves[0])
         stream = self._cur(dev)
@@ -432,7 +442,13 @@ class _Fake(_Recorder):
         dst.copy_(src)
 
     def _launch(self, cfg, leaves, t0, n_ticks):
-        return leaves
+        if cfg.alias_wire:
+            return leaves
+        out = tuple(a.clone() for a in leaves)
+        for a, b in zip(leaves, out):   # on the launch's device
+            n = self._buf(b, True)
+            self._on[n] = self._dev_of(a)
+        return out
 
 
 _RECORDER_NAMES = {n for c in (_Recorder, _Fake) for n in vars(c)}
@@ -807,10 +823,17 @@ def _synthetic_card(cfg: RaftConfig, hw, drop: str, passes: int = 1):
     not wait for its h2d), "down_wait" (the d2h does not wait for the
     launch), "record_stream" (the slice is not kept from reuse for the
     copy back), "host_sync" (the host never waits for the copies back),
-    "double_drain" (a stale pending drained again)."""
+    "double_drain" (a stale pending drained again), "acc_record_stream"
+    (a shard's first accumulator, made on the card's current stream, is
+    read by the shard's first launch on its own stream and dropped with
+    no `record_stream` for it)."""
     from raft_tpu_torch.parallel import stream_sched
     cs = streams.cuda
     lanes = stream_sched.lanes(hw.mesh)
+    if drop != "acc_record_stream":
+        for j, lane in enumerate(lanes):
+            if lane.comp != cs.current_stream(hw.mesh[j]):
+                cs.record_stream(hw.accs[j], lane.comp)
     for _ in range(passes):
         pending = {}
         for i in range(len(hw.parts)):
@@ -873,7 +896,9 @@ NEGATIVES = (("no_comp_wait", "comp_wait", "upload-before-launch"),
              ("no_record_stream", "record_stream", "cross-stream-free"),
              ("no_host_sync", "host_sync", "pinned-reuse"),
              ("double_drain", "double_drain", "double-drain"),
-             ("unjoined_shards", None, "shard-join"))
+             ("unjoined_shards", None, "shard-join"),
+             ("acc_no_record_stream", "acc_record_stream",
+              "cross-stream-free"))
 
 
 def negative_trace(name: str) -> tuple:
@@ -890,10 +915,13 @@ def negative_trace(name: str) -> tuple:
             _synthetic_sharded(cfg, shards, mesh)
         return events, 0, 1
     from raft_tpu_torch.sim import kernel
-    g = 2 * kernel.window_groups(cfg)
+    # the accumulator's negative needs two shards sharing the card
+    n = 2 if drop == "acc_record_stream" else 1
+    mesh = (torch.device("cuda", 0),) * n
+    g = 2 * kernel.window_groups(cfg, n)
     passes = 2 if drop == "host_sync" else 1
     with capture(events) as rec:
-        hw = _fake_wire(cfg, g, (torch.device("cuda", 0),), rec)
+        hw = _fake_wire(cfg, g, mesh, rec)
         _synthetic_card(cfg, hw, drop, passes)
     return events, g, passes
 

@@ -106,16 +106,23 @@ def timed(fn):
     return out, e0.elapsed_time(e1)
 
 
-def phase_cycles(runs) -> dict:
-    """Cycles per tile and tick by phase, on the base build's runs."""
+def instrumented_source() -> str:
+    """fused_chunk.cu with the clock64() probes (`PROBES`) after their
+    anchors and `fc_read_cycles`; raises when an anchor is missing."""
     src = kernel.SOURCE.read_text()
     for anchor, probe in PROBES:
         if src.count(anchor) < 1:
             raise RuntimeError(f"probe anchor missing: {anchor!r}")
         src = src.replace(anchor, anchor + probe, 1)
+    return src + READ_CYCLES
+
+
+def phase_cycles(runs) -> dict:
+    """Cycles per tile and tick by phase, on the base build's runs (the
+    ones without a flight ring), from the instrumented build."""
     AB_DIR.mkdir(parents=True, exist_ok=True)
     source = AB_DIR / "fused_chunk_cycles.cu"
-    source.write_text(src + READ_CYCLES)
+    source.write_text(instrumented_source())
     base = (False,) * len(kernel.FEATURES)
     lib = nvcc(source, base, "cycles")
     real_load = kernel.load

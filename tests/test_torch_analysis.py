@@ -51,7 +51,7 @@ def test_deep_audit_script_exits_0_and_names_its_passes():
                          cwd=ROOT, capture_output=True, text=True)
     assert out.returncode == 0, out.stdout + out.stderr
     for word in ("mcheck smoke", "exhaustive", "hazard prover",
-                 "scheduler configs", "6/6 negatives caught",
+                 "scheduler configs", "7/7 negatives caught",
                  "kernel plan: skipped"):
         assert word in out.stdout, word
 

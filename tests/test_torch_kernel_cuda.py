@@ -624,3 +624,46 @@ def test_launch_plans_and_observed_streams_on_card(cuda):
     assert_trees_equal(tuple(want), tuple(got))
     assert hazards.check_trace(events, 0) == []
     assert hazards.counts(events)["launches"] == 3
+
+
+def _sweep():
+    """scripts/torch_kernel_sweep.py as a module."""
+    import importlib
+    import sys
+    from pathlib import Path
+    scripts = str(Path(__file__).resolve().parent.parent / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module("torch_kernel_sweep")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(6))
+def test_sweep_base_universes_on_card(cuda, n):
+    """The kernel sweep's six covering-array universes (k in {3, 4, 5},
+    L in {16, 32}, the feature and fault factors pairwise) at its
+    default 512 groups x 120 ticks: `kernel.prun` equal to the plain run
+    loop from the same State, safety held."""
+    sweep = _sweep()
+    cfg = list(sweep.sweep_configs(1000))[n]
+    plain, got = sweep.engines(cfg, 512, 120, cuda)
+    assert_trees_equal(plain, got)
+    assert run.unsafe_groups(plain[1]) == 0
+
+
+@pytest.mark.cuda
+def test_shards_out_on_one_card(cuda):
+    """Shards in, shards out over two shards of the card, flight ring on:
+    each State and Flight shard decoded on the card, joined equal to the
+    gathered run; the Metrics equal too."""
+    from raft_tpu_torch.parallel import groups, kmesh, mesh
+    cfg = RaftConfig(n_groups=1000, **BENCH_CLIENTS)
+    st0 = state.init(cfg, device=cuda)
+    fl = recorder.flight_init(cfg.n_groups, device=cuda)
+    two = (cuda, cuda)
+    want = kmesh.prun_sharded(cfg, st0, 60, two, flight=fl, chunk_ticks=30)
+    st_s, m_s, f_s = kmesh.prun_sharded(cfg, mesh.shard_state(st0, two), 60,
+                                        two, flight=fl, chunk_ticks=30)
+    assert [s.alive_prev.device.type for s in st_s] == ["cuda", "cuda"]
+    assert_trees_equal(want, (groups.cat_states(st_s, cuda), m_s,
+                              groups.cat_flights(f_s, cuda)))

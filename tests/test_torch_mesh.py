@@ -259,8 +259,8 @@ def test_streamed_sharded_matches_resident_and_jax(fault_48, tmp_path):
 def test_reference_checkpoint_continues_on_a_mesh(fault_48, tmp_path):
     """A checkpoint the JAX package wrote at tick 48, loaded onto three
     CPU shards (`checkpoint.load(mesh=...)`), continues 24 ticks through
-    `prun_sharded` equal to the unsharded kernel path from the same
-    file."""
+    `prun_sharded`, which returns the State as shards: joined, equal to
+    the unsharded kernel path from the same file."""
     sj, mj = fault_48
     path = tmp_path / "ref.npz"
     jckpt.save(path, sj, 48, mj, cfg=JFAULT)
@@ -269,6 +269,9 @@ def test_reference_checkpoint_continues_on_a_mesh(fault_48, tmp_path):
     whole, _, _ = checkpoint.load(path, cfg=FAULT, device="cpu")
     assert_same(sj, groups.cat_states(shards, "cpu"), "loaded shards")
     got = kmesh.prun_sharded(FAULT, shards, 24, CPU3, t, m, chunk_ticks=12)
+    # shards in, shards out: each State shard decoded on its device
+    assert [s.alive_prev.shape[0] for s in got[0]] == [22, 22, 20]
+    got = (groups.cat_states(got[0], "cpu"), got[1])
     want = kernel.prun(FAULT, whole, 24, t, m)
     for a, b, what in zip(got, want, ("state", "metrics")):
         assert_equal(a, b, what)

@@ -25,7 +25,12 @@ PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_nemesis_search.py",
      ROOT / "scripts" / "torch_bench_history.py",
      ROOT / "scripts" / "torch_multichip_sweep.py",
-     ROOT / "scripts" / "torch_static_audit.py"]
+     ROOT / "scripts" / "torch_static_audit.py",
+     ROOT / "scripts" / "torch_kernel_sweep.py",
+     ROOT / "scripts" / "torch_nemesis_fleet.py",
+     ROOT / "scripts" / "torch_perf_probe.py",
+     ROOT / "scripts" / "torch_layout_probe.py",
+     ROOT / "scripts" / "torch_check_metric_parity.py"]
 
 
 def _imported_roots(path: Path) -> set:
