@@ -165,6 +165,13 @@ launch counts set to 0 just before it and read just after:
    exactly-once report clean with clients, the safety bit dropped in
    exactly the known groups (one group of one universe, the JAX
    package's own: `SWEEP_KNOWN_UNSAFE`); each axis's launches counted;
+(m) the bench (bench_torch.py, bench.py's eight segments): `--quick`
+   (1,000 groups x 200 ticks each) in a child process, waited for and
+   killed on any failure: exit 0, every segment's State, Metrics and
+   flight ring equal to the plain tick's at its end point (its manifest
+   records), safety and exactly-once held, every engine a CUDA one, and
+   its kernel launches (three a run: two warmup, one timed) counted in
+   the child; its JSON line and seconds printed;
 7. a `kernels` JSON line: launches, times and bound of the fused chunk
    and the two codec kernels, and the same for each flag set's build by
    run (with each run's steady-state time: three launches more from its
@@ -905,6 +912,72 @@ def sweep_on_card(dev):
         shutil.rmtree(tmp)
     report["seconds"] = time.time() - t0
     return report
+
+
+# Phase (m): bench_torch.py --quick, its limit and its kernel launches
+# (three a run: two warmup launches and one timed 200-tick launch; eight
+# segments, the pressure segment five runs, the from-tick-0 segments'
+# throwaway warmup universes included)
+BENCH_TIMEOUT = 720
+BENCH_QUICK_LAUNCHES = 3 * (3 + 4 + 5)
+
+
+def bench_quick(card: str) -> dict:
+    """Phase (m): `bench_torch.py --quick` in a child process with the card
+    visible (the builds are phase 2's, on disk), waited for and killed
+    past `BENCH_TIMEOUT` or on any failure here. Requires exit 0, eight
+    manifest records each with State, Metrics and flight ring equal to
+    the plain tick's, safety held, every engine a CUDA one, the JSON
+    line's safety and exactly-once verdicts true, and
+    `BENCH_QUICK_LAUNCHES` kernel launches (the child's counts, from its
+    log). Returns {"line", "seconds", "launches"}."""
+    tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
+    out, err, man = tmp / "bench.out", tmp / "bench.err", tmp / "m.jsonl"
+    proc, t0 = None, time.time()
+    try:
+        with open(out, "w") as fo, open(err, "w") as fe:
+            proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "bench_torch.py"), "--quick",
+                 "--manifest", str(man)], cwd=ROOT,
+                stdin=subprocess.DEVNULL, stdout=fo, stderr=fe)
+            rc = proc.wait(timeout=BENCH_TIMEOUT)
+        secs = time.time() - t0
+        log = err.read_text()
+        if rc != 0:
+            raise AssertionError(f"(m) bench_torch.py --quick exited {rc}:"
+                                 f"\n{log[-4000:]}")
+        line = json.loads(out.read_text().strip().splitlines()[-1])
+        recs = [json.loads(ln) for ln in man.read_text().splitlines()]
+        bad = [r["segment"] for r in recs
+               if not (r["state_identical"] and r["metrics_identical"]
+                       and r["flight_identical"] and r["safety_ok"]
+                       and r["engine"].startswith("cuda"))]
+        engines = {k: v for k, v in line.items() if k.endswith("engine")}
+        if len(recs) != 8 or bad or not (
+                line["safety_ok"] and line["client_exactly_once_ok"]
+                and line["pressure_exactly_once_ok"]) or not all(
+                v.startswith("cuda") for v in engines.values()) or not all(
+                v is True for k, v in line.items()
+                if k.endswith("_state_identical")):
+            raise AssertionError(f"(m) {len(recs)} records, failing "
+                                 f"{bad}; engines {engines}; line {line}")
+        launches = json.loads(
+            log.split("bench_torch launches: ")[-1].splitlines()[0])
+        if launches["fused_chunk"] != BENCH_QUICK_LAUNCHES:
+            raise AssertionError(f"(m) kernel launches {launches}, want "
+                                 f"{BENCH_QUICK_LAUNCHES}")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp)
+    print(json.dumps({"bench_quick": line}), flush=True)
+    print(f"[m] bench_torch.py --quick: exit 0 in {secs:.1f} s ({card}); "
+          f"8 segments, each kernel run's State, Metrics and flight ring "
+          f"equal to the plain tick's at its end point; headline "
+          f"{line['value']} rounds/s at 1,000 groups; launches {launches}",
+          flush=True)
+    return {"line": line, "seconds": secs, "launches": launches}
 
 
 # Phase (i): the runs traced on the card and the manifest segment each
@@ -2200,6 +2273,9 @@ def main(argv=None) -> int:
           f"{SWEEP_TICKS} ticks, every one max abs err 0; "
           f"{sweep['seconds']:.1f} s ({card}); launches {sweep['launches']}",
           flush=True)
+
+    # (m) the bench's eight segments at --quick, in a child process
+    paths["bench_quick"] = bench_quick(card)["launches"]["fused_chunk"]
 
     # 7. the kernel table: the headline's numbers at the top level, and
     # every run under the flag set it was built with

@@ -21,7 +21,8 @@ from raft_tpu_torch.sim import checkpoint, kernel, run, state
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_kernel_ab.py",
+    [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+     ROOT / "scripts" / "torch_kernel_ab.py",
      ROOT / "scripts" / "torch_nemesis_search.py",
      ROOT / "scripts" / "torch_bench_history.py",
      ROOT / "scripts" / "torch_multichip_sweep.py",

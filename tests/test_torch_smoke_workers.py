@@ -3,7 +3,10 @@
 `torch_kernel_sweep.reference_on_cpu` gives in the process itself, a
 failed worker raises with its exit code, and `Children.close()` kills
 the workers still running and waits for each, so that none outlives the
-script (`live_children` no longer lists them)."""
+script (`live_children` no longer lists them). Phase (m)'s bench child
+(`bench_torch.py --quick`) exits 2 here, with no card: `bench_quick`
+raises with its exit code and leaves neither a process nor its
+temporary directory behind."""
 
 from __future__ import annotations
 
@@ -57,3 +60,14 @@ def test_close_kills_and_waits_for_every_worker(tmp_path):
         pool.close()
     assert not pool.live and len(pool.rc) == 4
     assert not any(marker in c for c in smoke.live_children())
+
+
+def test_bench_child_fails_without_a_card_and_leaves_nothing():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the bench child would run")
+    before = set(ROOT.glob(".chip_smoke_*"))
+    with pytest.raises(AssertionError, match="--quick exited 2"):
+        smoke.bench_quick("cpu")
+    assert set(ROOT.glob(".chip_smoke_*")) == before
+    assert not any("bench_torch.py" in c for c in smoke.live_children())
