@@ -53,7 +53,8 @@ trace (trace_bench.json: segment, warmup, timed and one chunk span per
 launch with its CUDA-event device time) and a heartbeat JSONL (a beat
 reads lanes back, so it syncs the card every N chunks: walls include
 that cost); `--torch-profile` adds a `torch.profiler` capture per
-segment under DIR/torchprof.
+segment under DIR/torchprof, where the same spans are
+`raft_tpu_torch.<span>` ranges on the card's clock.
 """
 
 from __future__ import annotations

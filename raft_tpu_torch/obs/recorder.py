@@ -20,6 +20,7 @@ import torch
 
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.node import LEADER
+from raft_tpu_torch.obs import trace
 from raft_tpu_torch.sim import check
 from raft_tpu_torch.sim.run import Metrics, metrics_init, metrics_update
 from raft_tpu_torch.sim.state import I32, State, widen_state
@@ -48,6 +49,7 @@ class Flight(NamedTuple):
     safety: torch.Tensor     # that tick's safety bit (1 = invariants held)
 
 
+@trace.spanned("recorder.flight_init")
 def flight_init(n_groups: int, ring: int = RING, device="cuda") -> Flight:
     device = torch.device(device)
 

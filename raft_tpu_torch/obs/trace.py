@@ -4,21 +4,35 @@ file in Perfetto, ui.perfetto.dev, or chrome://tracing), and a JSONL
 health record every N launches of a long run.
 
 - **Tracer**: complete spans ("ph": "X", ts and dur in microseconds
-  since the tracer's epoch), with the JAX package's categories. The
+  since the tracer's epoch), with the JAX package's categories. Each
+  span is also a `torch.profiler.record_function` range named
+  `raft_tpu_torch.<span name>` (`RANGE_PREFIX`): under a profiler the
+  program's spans land in its trace as `user_annotation` events, on the
+  clock of the card's kernels and copies. The entry points put a span
+  on their whole body (`spanned`): `state.init`, `run.metrics_init`,
+  `recorder.flight_init`, and `kernel.prun` with its parts (`kinit`,
+  `kinit encode`, `kfinish`, `kfinish overflow check`, `kfinish
+  decode`, `kflight`); `kmesh.prun_sharded` likewise (`kmesh prun`,
+  `kmesh cut`, `kmesh kinit`, `kmesh gather`, `kmesh finish`). The
   kernel drivers (`sim/kernel.py` `krun`, and so `prun`; the streamed
   windows of `parallel/cohort.py`) put one `chunk_span` on every launch,
   named `chunk cuda [t0,t1)` (`chunk plain [...)` for the plain version
   on the CPU), and the codec wrappers one `launch_span` on each of their
-  launches. A launch is asynchronous: on a card the span records CUDA
+  launches. `kstep` puts a `kstep alloc` span on its output allocation
+  and a `kstep launch` span on the launch's enqueue.
+- **Device times** (`Tracer(device_times=True)`, the default): a launch
+  is asynchronous, so on a card a chunk or launch span records CUDA
   events around it, waits for the second, stores the launch's device
   time in its args as `device_ms` (and the host's time to queue it as
   `enqueue_ms`: a host stall before the launch shows in both; a nested
   span that waits for its own launch, as the codec's do, adds to the
   enclosing one's) and then closes, so the span covers the launch's
-  whole run. `kstep` puts a `kstep alloc` span on its output
-  allocation. The streamed pipeline's copies and launches, which
-  overlap on three streams, are placed on the timeline at their device
-  times (`Tracer.complete`, one lane each).
+  whole run. The streamed pipeline's copies and launches, which overlap
+  on three streams, are placed on the timeline at their device times
+  (`Tracer.complete`, one lane each). With `device_times=False` the
+  tracer records no CUDA event and never waits: a chunk or launch span
+  closes when its launch is enqueued, the streamed lanes are not
+  placed, and the profiler's trace gives the device side.
 - **Heartbeat**: a JSONL record of the counters and health signals
   every `every` launches (and on the first of each label), so a long run
   can be watched while it runs (`tail -f` the file). With a tracer
@@ -30,7 +44,8 @@ health record every N launches of a long run.
   output, the drivers' own Python) is a span of its own, `gap <label>`
   (category `CAT_GAP`), from the end of one to the start of the next
   and at both ends of the block: the block's wall is its chunk spans,
-  heartbeats and gaps, end to end, with no untraced time between.
+  heartbeats and gaps, end to end, with no untraced time between. Gaps
+  are in the tracer's own JSON only, not profiler ranges.
 
 With no tracer (no heartbeat) installed, every hook is a no-op that
 costs one attribute read, and nothing synchronises.
@@ -54,14 +69,23 @@ CAT_CHUNK = "chunk"      # one kernel launch
 CAT_SEGMENT = "segment"  # a whole measured run
 CAT_GAP = "gap"          # host time between a covered run's spans
 
+# The name prefix of a span's profiler range.
+RANGE_PREFIX = "raft_tpu_torch."
+
 _NULL = contextlib.nullcontext()
 
 
 class Tracer:
     """Collects Chrome trace-event spans. Appends are thread-safe; one
-    process is one pid lane, host threads are tid lanes."""
+    process is one pid lane, host threads are tid lanes. With
+    `device_times` a chunk or launch span on a card waits for its
+    launch's end and records its device time; without, it records no
+    CUDA event and closes when the launch is enqueued."""
 
-    def __init__(self):
+    def __init__(self, device_times: bool = True):
+        self.device_times = device_times
+        # Read once: a system call, tens of microseconds on some hosts.
+        self._pid = os.getpid()
         self._epoch = time.perf_counter()
         self._lock = threading.Lock()
         self._run = threading.local()   # this thread's `covered` block
@@ -78,7 +102,7 @@ class Tracer:
     def _complete(self, name: str, cat: str, t0: float, t1: float,
                   args: dict | None = None):
         ev = {"name": name, "cat": cat, "ph": "X", "ts": t0,
-              "dur": t1 - t0, "pid": os.getpid(),
+              "dur": t1 - t0, "pid": self._pid,
               "tid": threading.get_ident() & 0x7FFFFFFF}
         if args:
             ev["args"] = args
@@ -98,7 +122,8 @@ class Tracer:
             self._complete(f"gap {run.label}", CAT_GAP, run.at, t0)
             run.depth += 1
         try:
-            yield args
+            with torch.profiler.record_function(RANGE_PREFIX + name):
+                yield args
         finally:
             t1 = self.now_us()
             self._complete(name, cat, t0, t1, args)
@@ -128,7 +153,8 @@ class Tracer:
     @contextlib.contextmanager
     def _launch(self, name: str, device, args: dict, covers: bool = False):
         events = None
-        if device is not None and torch.device(device).type == "cuda":
+        if self.device_times and device is not None \
+                and torch.device(device).type == "cuda":
             stream = torch.cuda.current_stream(device)
             events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
             events[0].record(stream)
@@ -141,32 +167,13 @@ class Tracer:
                 events[1].synchronize()
                 args["device_ms"] = events[0].elapsed_time(events[1])
 
-    def traced(self, name: str | None = None, cat: str = CAT_PHASE):
-        """Decorator form of `span`."""
-        def deco(fn):
-            @functools.wraps(fn)
-            def wrapper(*a, **kw):
-                with self.span(name or fn.__qualname__, cat=cat):
-                    return fn(*a, **kw)
-            return wrapper
-        return deco
-
-    def instant(self, name: str, cat: str = CAT_PHASE, **args):
-        """One instant event ("ph": "i"), a marker."""
-        ev = {"name": name, "cat": cat, "ph": "i", "s": "p",
-              "ts": self.now_us(), "pid": os.getpid(),
-              "tid": threading.get_ident() & 0x7FFFFFFF}
-        if args:
-            ev["args"] = args
-        self._append(ev)
-
     def complete(self, name: str, ts_us: float, dur_us: float, tid: int,
                  cat: str = CAT_PHASE, **args):
         """A complete span at a given place on the timeline, on lane
         `tid`: work whose time the card measured (CUDA events placed
         against a reference event)."""
         ev = {"name": name, "cat": cat, "ph": "X", "ts": ts_us,
-              "dur": dur_us, "pid": os.getpid(), "tid": tid}
+              "dur": dur_us, "pid": self._pid, "tid": tid}
         if args:
             ev["args"] = args
         self._append(ev)
@@ -174,7 +181,7 @@ class Tracer:
     def lane(self, tid: int, name: str):
         """Name lane `tid` in the viewer (a "thread_name" metadata event)."""
         self._append({"name": "thread_name", "ph": "M", "ts": 0,
-                      "pid": os.getpid(), "tid": tid,
+                      "pid": self._pid, "tid": tid,
                       "args": {"name": name}})
 
     def to_json(self) -> dict:
@@ -239,6 +246,21 @@ def span(name: str, cat: str = CAT_PHASE, **args):
     return t._span(name, cat, args)
 
 
+def spanned(name: str):
+    """Decorator: the function's whole body inside `span(name)` when a
+    tracer is installed; without one, a plain call."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            t = _TRACER
+            if t is None:
+                return fn(*a, **kw)
+            with t._span(name, CAT_PHASE, {}):
+                return fn(*a, **kw)
+        return wrapper
+    return deco
+
+
 def covered(label: str):
     """A block whose host gaps between its chunk spans and heartbeats are
     traced (`gap <label>` spans, module docstring), or a null context
@@ -259,10 +281,10 @@ def _beat_span(label: str):
 
 
 def launch_span(name: str, device=None, **args):
-    """A `CAT_CHUNK` span around one kernel launch on `device` (on a card:
-    with its `device_ms`, closing after the launch ends), or a null
-    context with no tracer installed. It yields the span's args (None
-    without a tracer)."""
+    """A `CAT_CHUNK` span around one kernel launch on `device` (on a card,
+    under a tracer with device times: with its `device_ms`, closing after
+    the launch ends), or a null context with no tracer installed. It
+    yields the span's args (None without a tracer)."""
     t = _TRACER
     if t is None:
         return _NULL

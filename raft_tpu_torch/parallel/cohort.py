@@ -300,14 +300,17 @@ def _stream_card(cfg, hw: HostWire, t0: int, n_ticks: int, chunk: int,
                  per: dict) -> int:
     """The card's pipeline, every shard's window i queued before any is
     awaited: returns the launches, and fills `per` with each shard's
-    h2d, compute and d2h seconds (CUDA events). With a tracer installed,
-    each window's h2d copy, launches and d2h copy become a span at its
-    device time, on one lane per stream and shard."""
+    h2d, compute and d2h seconds (CUDA events). With a tracer installed
+    that keeps device times, each window's h2d copy, launches and d2h
+    copy become a span at its device time, on one lane per stream and
+    shard."""
     cs = streams.cuda
     n = len(hw.mesh)
     lanes = stream_sched.lanes(hw.mesh)
     pool = stream_sched.StagingPool(hw)
     tracer = trace.get_tracer()
+    if tracer is not None and not tracer.device_times:
+        tracer = None   # no device times: no lanes placed, no wait
     if tracer is not None:   # the clock that places the streams' events
         ref = {}
         for j, d in enumerate(hw.mesh):

@@ -245,6 +245,7 @@ def kfinish_sharded(cfg: RaftConfig, shards, g: int,
                           metrics_base)
 
 
+@trace.spanned("kmesh prun")
 def prun_sharded(cfg: RaftConfig, st, n_ticks: int, mesh, t0: int = 0,
                  metrics: Metrics | None = None, flight: Flight | None = None,
                  chunk_ticks: int | None = None):
@@ -260,23 +261,28 @@ def prun_sharded(cfg: RaftConfig, st, n_ticks: int, mesh, t0: int = 0,
     kernel's shape, on each card the launches of every shard it holds
     within its budget, and the run's end: on the first card the whole
     fleet's gather and finish, or with shards out each card's finish of
-    its own (`kernel.mesh_hbm_bytes`)."""
-    mesh = make_mesh(devices=mesh)
-    shards_out = not isinstance(st, state_mod.State)
-    shards = as_shards(st, mesh)
-    for sh in shards:
-        state_mod.check_narrow_overflow(cfg, sh)
-    g = sum(s.alive_prev.shape[0] for s in shards)
-    ring = 0 if flight is None else flight.tick.shape[0]
-    if any(d.type == "cuda" for d in mesh) and not kernel.supported(
-            cfg, g, ring, mesh=mesh, shards_out=shards_out):
-        raise ValueError(
-            "kmesh: " + ("" if kernel.shape_supported(cfg) else
-                         f"{kernel.shape_refusal(cfg)}; ")
-            + f"the shards' launches need "
-            f"{kernel.mesh_hbm_bytes(cfg, g, mesh, ring, shards_out)} B "
-            f"by device, more than a card's budget")
-    leaves, g = kinit_sharded(cfg, shards, mesh, metrics, flight)
+    its own (`kernel.mesh_hbm_bytes`). Spans (`obs.trace`, no-ops unless
+    a tracer is installed): `kmesh prun` over the call, with `kmesh cut`,
+    `kmesh kinit`, each shard's chunk spans, then `kmesh gather` (whole
+    State in) and `kmesh finish` inside."""
+    with trace.span("kmesh cut"):
+        mesh = make_mesh(devices=mesh)
+        shards_out = not isinstance(st, state_mod.State)
+        shards = as_shards(st, mesh)
+        for sh in shards:
+            state_mod.check_narrow_overflow(cfg, sh)
+        g = sum(s.alive_prev.shape[0] for s in shards)
+        ring = 0 if flight is None else flight.tick.shape[0]
+        if any(d.type == "cuda" for d in mesh) and not kernel.supported(
+                cfg, g, ring, mesh=mesh, shards_out=shards_out):
+            raise ValueError(
+                "kmesh: " + ("" if kernel.shape_supported(cfg) else
+                             f"{kernel.shape_refusal(cfg)}; ")
+                + f"the shards' launches need "
+                f"{kernel.mesh_hbm_bytes(cfg, g, mesh, ring, shards_out)} B "
+                f"by device, more than a card's budget")
+    with trace.span("kmesh kinit"):
+        leaves, g = kinit_sharded(cfg, shards, mesh, metrics, flight)
     del shards
     chunk = chunk_ticks or n_ticks
     at, end = int(t0), int(t0) + int(n_ticks)
@@ -285,10 +291,14 @@ def prun_sharded(cfg: RaftConfig, st, n_ticks: int, mesh, t0: int = 0,
         leaves = kstep_sharded(cfg, leaves, at, step, mesh)
         at += step
     if shards_out:
-        st2, m2, f2 = finish_shards(cfg, leaves, metrics, flight is not None)
+        with trace.span("kmesh finish"):
+            st2, m2, f2 = finish_shards(cfg, leaves, metrics,
+                                        flight is not None)
         return (st2, m2) if flight is None else (st2, m2, f2)
-    whole = gather(cfg, leaves, mesh[0])
+    with trace.span("kmesh gather"):
+        whole = gather(cfg, leaves, mesh[0])
     del leaves   # the first device now holds the fleet: free the shards
-    st2, m2 = kernel.kfinish(cfg, whole, g, metrics)
-    return (st2, m2) if flight is None else (st2, m2,
-                                             kernel.kflight(cfg, whole, g))
+    with trace.span("kmesh finish"):
+        st2, m2 = kernel.kfinish(cfg, whole, g, metrics)
+        f2 = None if flight is None else kernel.kflight(cfg, whole, g)
+    return (st2, m2) if flight is None else (st2, m2, f2)

@@ -7,7 +7,10 @@ state in shared memory for the whole launch and one lane per Raft node
 codec (csrc/wire_codec.cu) and byte model. `krun` is the chunked launch
 loop every driver shares: it puts an `obs.trace` chunk span on each
 launch and a heartbeat after it (no-ops unless installed); the codec
-wrappers put a span on each of their launches.
+wrappers put a span on each of their launches, and `prun`, `kinit`,
+`kfinish` and `kflight` one on their whole body, with their parts
+(`kinit encode`, `kfinish overflow check`, `kfinish decode`, `kstep
+alloc`, `kstep launch`) inside.
 
 The wire form is a pair of tensors, `(wire, acc)`:
 - `wire`: int32, every State leaf plus the per-group metric lanes
@@ -1017,6 +1020,7 @@ def check_ring_overflow(cfg: RaftConfig, wire: torch.Tensor) -> None:
 # ---------------------------------------------------------- entry points
 
 
+@trace.spanned("kinit")
 def kinit(cfg: RaftConfig, st: State, metrics: Metrics | None = None,
           flight: Flight | None = None):
     """(State, Metrics[, Flight]) -> the wire form at rest, once per run.
@@ -1039,10 +1043,12 @@ def kinit(cfg: RaftConfig, st: State, metrics: Metrics | None = None,
     if clients and metrics.client_acked is not None:
         m = m._replace(client_acked=metrics.client_acked,
                        client_retries=metrics.client_retries)
-    wire, acc = _encode(cfg, st, m, flight)
+    with trace.span("kinit encode"):
+        wire, acc = _encode(cfg, st, m, flight)
     return (pack_wire(cfg, wire), acc), g
 
 
+@trace.spanned("kfinish")
 def kfinish(cfg: RaftConfig, leaves, g: int,
             metrics_base: Metrics | None = None):
     """Wire form -> (State, Metrics), folding `metrics_base`'s election
@@ -1052,12 +1058,15 @@ def kfinish(cfg: RaftConfig, leaves, g: int,
     narrow config's State comes back narrow. The flight rings, when
     present, are read with `kflight`."""
     wire, acc = leaves
-    check_ring_overflow(cfg, wire)
-    st, m, _ = _decode(cfg, unpack_wire(cfg, wire), acc)
-    if state_mod.narrow_active(cfg):
-        st = state_mod.narrow_state(cfg, st)
-        state_mod.check_narrow_overflow(cfg, st)
-    return st, _fold_base(cfg, m, metrics_base)
+    with trace.span("kfinish overflow check"):
+        check_ring_overflow(cfg, wire)
+    work = unpack_wire(cfg, wire)
+    with trace.span("kfinish decode"):
+        st, m, _ = _decode(cfg, work, acc)
+        if state_mod.narrow_active(cfg):
+            st = state_mod.narrow_state(cfg, st)
+            state_mod.check_narrow_overflow(cfg, st)
+        return st, _fold_base(cfg, m, metrics_base)
 
 
 def kmetrics(cfg: RaftConfig, lanes: dict, acc: torch.Tensor,
@@ -1092,6 +1101,7 @@ def _fold_base(cfg: RaftConfig, m: Metrics,
     return m
 
 
+@trace.spanned("kflight")
 def kflight(cfg: RaftConfig, leaves, g: int) -> Flight | None:
     """The Flight on the wire, or None when kinit ran without one."""
     wire = leaves[0]
@@ -1433,16 +1443,18 @@ def kstep(cfg: RaftConfig, leaves, t0: int, n_ticks: int):
         work, wire_in = wire, None
     else:
         work, wire_in = fresh, wire
-    offs, params, nem = _launch_args(cfg, g, _hist_size(cfg, acc), ring,
-                                     int(t0), int(n_ticks))
-    table = _nem_table(cfg, wire.device)
-    stream = torch.cuda.current_stream(wire.device).cuda_stream
-    with torch.cuda.device(wire.device):   # the C side launches there
-        rc = lib.fused_chunk_launch(
-            None if wire_in is None else wire_in.data_ptr(), work.data_ptr(),
-            acc_out.data_ptr(), None if table is None else table.data_ptr(),
-            offs.ctypes.data, len(offs), params.ctypes.data, len(params),
-            nem.ctypes.data, len(nem), stream)
+    with trace.span("kstep launch", groups=g):
+        offs, params, nem = _launch_args(cfg, g, _hist_size(cfg, acc), ring,
+                                         int(t0), int(n_ticks))
+        table = _nem_table(cfg, wire.device)
+        stream = torch.cuda.current_stream(wire.device).cuda_stream
+        with torch.cuda.device(wire.device):   # the C side launches there
+            rc = lib.fused_chunk_launch(
+                None if wire_in is None else wire_in.data_ptr(),
+                work.data_ptr(), acc_out.data_ptr(),
+                None if table is None else table.data_ptr(),
+                offs.ctypes.data, len(offs), params.ctypes.data, len(params),
+                nem.ctypes.data, len(nem), stream)
     if rc != 0:
         raise RuntimeError(f"fused_chunk launch failed: "
                            f"{_RC.get(rc, f'error {rc}')}")
@@ -1485,6 +1497,7 @@ def krun(cfg: RaftConfig, leaves, t0: int, n_ticks: int,
     return leaves
 
 
+@trace.spanned("prun")
 def prun(cfg: RaftConfig, st: State, n_ticks: int, t0: int = 0,
          metrics: Metrics | None = None, flight: Flight | None = None):
     """Drop-in for `run.run` (for `recorder.run_recorded` with a

@@ -30,6 +30,7 @@ import torch
 
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.node import LEADER
+from raft_tpu_torch.obs import trace
 from raft_tpu_torch.sim import check
 from raft_tpu_torch.sim.state import I32, State, widen_state
 from raft_tpu_torch.sim.step import tick
@@ -51,6 +52,7 @@ class Metrics(NamedTuple):
     client_max_lat: torch.Tensor | None = None  # i32 — longest acked op
 
 
+@trace.spanned("run.metrics_init")
 def metrics_init(n_groups: int, hist_size: int = HIST_SIZE,
                  clients: bool = False, device="cuda") -> Metrics:
     """Zero metrics; `clients=True` for a scheduled-client universe."""

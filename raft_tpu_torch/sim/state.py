@@ -48,6 +48,7 @@ from raft_tpu_torch.clients.state import (NARROW_CLIENT_SPEC, ClientState,
                                           clients_init)
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.core.node import FOLLOWER, NO_VOTE
+from raft_tpu_torch.obs import trace
 from raft_tpu_torch.utils import trng
 
 I32 = torch.int32
@@ -205,6 +206,7 @@ def empty_mailbox(cfg: RaftConfig, lead_shape: tuple, device) -> Mailbox:
                       for f in mb_fields(cfg)})
 
 
+@trace.spanned("state.init")
 def init(cfg: RaftConfig, n_groups: int | None = None,
          device="cuda", first_group: int = 0) -> State:
     """Fresh state: every replica a follower at term 0 with one timer

@@ -31,7 +31,8 @@ PORT_FILES = sorted((ROOT / "raft_tpu_torch").rglob("*.py")) + \
      ROOT / "scripts" / "torch_nemesis_fleet.py",
      ROOT / "scripts" / "torch_perf_probe.py",
      ROOT / "scripts" / "torch_layout_probe.py",
-     ROOT / "scripts" / "torch_check_metric_parity.py"]
+     ROOT / "scripts" / "torch_check_metric_parity.py",
+     ROOT / "scripts" / "torch_span_split.py"]
 
 
 def _imported_roots(path: Path) -> set:

@@ -6,7 +6,11 @@ its own, and `beat_wire` on the port's `kinit` wire equals the
 reference's on `pkernel.kinit` (every key but `unix_time` and `engine`);
 the port's drivers (`kernel.prun`, `kernel.krun`, `cohort.prun_streamed`)
 leave exactly one chunk span per launch on the CPU, with the heartbeats
-after them, and nothing with no tracer installed.
+after them, and nothing with no tracer installed. Under `torch.profiler`
+the installed tracer's spans are `raft_tpu_torch.` ranges on the
+profiler's clock, nested as the entry points call each other
+(`state.init` and `kernel.prun`; `kmesh.prun_sharded` over four CPU
+shards), and a tracer without device times calls nothing of CUDA.
 
 The reference runs `run_recorded(CFG, init, 40)` and `pkernel.kinit`,
 the programs tests/test_perf_obs.py compiles."""
@@ -17,6 +21,7 @@ import dataclasses
 import json
 
 import pytest
+import torch
 
 from raft_tpu import sim as jsim
 from raft_tpu.config import RaftConfig as JaxConfig
@@ -26,8 +31,9 @@ from raft_tpu.obs import trace as jtrace
 from raft_tpu.sim import pkernel
 from raft_tpu_torch.config import RaftConfig
 from raft_tpu_torch.obs import recorder, trace
-from raft_tpu_torch.parallel import cohort
-from raft_tpu_torch.sim import kernel, state
+from raft_tpu_torch.parallel import cohort, kmesh
+from raft_tpu_torch.parallel import mesh as mesh_mod
+from raft_tpu_torch.sim import kernel, run, state
 
 from jax_programs import release_jax_programs  # noqa: F401
 
@@ -62,20 +68,13 @@ def test_each_validator_accepts_the_others_trace(installed, tmp_path):
     with t.span("segment", cat=trace.CAT_SEGMENT, groups=8):
         leaves, g = kernel.kinit(CFG, state.init(CFG, device="cpu"))
         kernel.krun(CFG, leaves, 0, 20, 10)
-    t.instant("marker", note="x")
     t.lane(7, "a lane")
     t.complete("placed", 1.0, 2.0, 7, cohort=0)
-
-    @t.traced("decorated")
-    def f():
-        return 7
-
-    assert f() == 7
     obj = json.loads(open(t.save(str(tmp_path / "port.json"))).read())
     assert trace.validate_trace(obj) == [] == jtrace.validate_trace(obj)
     names = [e["name"] for e in obj["traceEvents"]]
     assert {"chunk plain [0,10)", "chunk plain [10,20)", "segment",
-            "decorated", "placed"} <= set(names)
+            "placed"} <= set(names)
 
     jt = jtrace.Tracer()
     prev = jtrace.set_tracer(jt)
@@ -203,10 +202,179 @@ def test_no_tracer_no_spans(tmp_path):
     assert trace.launch_span("wire_pack cuda") is trace._NULL
     assert trace.span("x") is trace._NULL
     idle = trace.Tracer()   # made, never installed
-    st0 = state.init(CFG, device="cpu")
-    kernel.prun(CFG, st0, 20)
-    cfg = dataclasses.replace(CFG, stream_groups=True)
-    cohort.prun_streamed(cfg, st0, 10, device="cpu")
+
+    def body():
+        st0 = state.init(CFG, device="cpu")
+        kernel.prun(CFG, st0, 20)
+        cfg = dataclasses.replace(CFG, stream_groups=True)
+        cohort.prun_streamed(cfg, st0, 10, device="cpu")
+        kmesh.prun_sharded(CFG, st0, 10, ["cpu"] * 2)
+        return st0
+
+    st0, events = _profiled(body, tmp_path)
+    assert not [e for e in events if e[0].startswith(trace.RANGE_PREFIX)]
+    assert [e for e in events if e[0] == "outer"]
     assert idle.events == []
     assert trace.heartbeat_wire("x", 0, CFG, kernel.kinit(CFG, st0)[0],
                                 8) is None
+
+
+# ------------------------------------------- program spans under a profiler
+
+
+def _profiled(body, tmp_path):
+    """(body's result, the profiler's complete events as (name, category,
+    start, end) in microseconds) of `body` run inside a range "outer"
+    under a CPU `torch.profiler`, read back from its Chrome trace."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("outer"):
+            out = body()
+    path = tmp_path / "prof.json"
+    prof.export_chrome_trace(str(path))
+    events = [(e["name"], e.get("cat"), float(e["ts"]),
+               float(e["ts"]) + float(e["dur"]))
+              for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    return out, events
+
+
+def _tree(events) -> list:
+    """Sorted (span, enclosing range) of each program range: the
+    enclosing range is the shortest other user annotation around it,
+    prefixes stripped."""
+    def short(name):
+        return name[len(trace.RANGE_PREFIX):] if name.startswith(
+            trace.RANGE_PREFIX) else name
+    ranges = [e for e in events if e[1] == "user_annotation"]
+    out = []
+    for e in ranges:
+        if not e[0].startswith(trace.RANGE_PREFIX):
+            continue
+        around = [o for o in ranges if o is not e
+                  and o[2] <= e[2] and e[3] <= o[3]
+                  and o[3] - o[2] > e[3] - e[2]]
+        parent = min(around, key=lambda o: o[3] - o[2])
+        out.append((short(e[0]), short(parent[0])))
+    return sorted(out)
+
+
+def _inside(events, name, outer):
+    """The events named `name` lying inside a range named `outer`."""
+    spans = [e for e in events if e[0] == outer]
+    return [e for e in events if e[0] == name and any(
+        o[2] <= e[2] and e[3] <= o[3] for o in spans)]
+
+
+PRUN_TREE = sorted([
+    ("state.init", "outer"), ("run.metrics_init", "outer"),
+    ("recorder.flight_init", "outer"), ("prun", "outer"),
+    ("kinit", "prun"), ("run.metrics_init", "kinit"),
+    ("kinit encode", "kinit"), ("chunk plain [0,20)", "prun"),
+    ("kfinish", "prun"), ("kfinish overflow check", "kfinish"),
+    ("kfinish decode", "kfinish"), ("kflight", "prun")])
+
+
+@pytest.mark.parametrize("cfg", [CFG, dataclasses.replace(
+    CFG, pack_bools=True, pack_ring=True)], ids=["plain", "packed"])
+def test_spans_are_profiler_ranges_nested_as_called(cfg, tmp_path):
+    """Each span of `state.init` + `kernel.prun` appears once per call,
+    nested as the functions call each other, inside the caller's range
+    and on the profiler's clock: `_encode`'s `aten::cat` lies inside
+    `kinit encode`. The tracer's own JSON holds the same spans, and the
+    gaps only there."""
+    t = trace.Tracer(device_times=False)
+    prev = trace.set_tracer(t)
+    try:
+        def body():
+            st = state.init(cfg, device="cpu")
+            m = run.metrics_init(cfg.n_groups, device="cpu")
+            f = recorder.flight_init(cfg.n_groups, 16, device="cpu")
+            return kernel.prun(cfg, st, 20, 0, m, f)
+        out, events = _profiled(body, tmp_path)
+    finally:
+        trace.set_tracer(prev)
+    assert len(out) == 3 and out[2].tick.shape == (16, cfg.n_groups)
+    assert _tree(events) == PRUN_TREE
+    assert _inside(events, "aten::cat", trace.RANGE_PREFIX + "kinit encode")
+    own = sorted(e["name"] for e in t.events if e["cat"] != trace.CAT_GAP)
+    assert own == sorted(name for name, _ in PRUN_TREE)
+    assert {e["name"] for e in t.events if e["cat"] == trace.CAT_GAP} \
+        == {"gap prun"}
+    assert not [e for e in events if e[0].startswith(
+        trace.RANGE_PREFIX + "gap")]
+
+
+def _kinit_tree(n):
+    return n * [("kinit", "kmesh kinit"), ("kinit encode", "kinit"),
+                ("run.metrics_init", "kinit"),
+                (f"chunk plain-sharded-{n}dev [0,10)", "kmesh prun")]
+
+
+def _kfinish_tree(parent):
+    return [("kfinish", parent), ("kfinish overflow check", "kfinish"),
+            ("kfinish decode", "kfinish"), ("kflight", parent)]
+
+
+@pytest.mark.parametrize("shards_in", [False, True],
+                         ids=["whole", "shards"])
+def test_sharded_run_spans_nest(shards_in, tmp_path):
+    """`kmesh.prun_sharded` over four CPU shards: `kmesh cut`, `kmesh
+    kinit` (a `kinit` a shard), a chunk span a shard, then `kmesh
+    gather` and `kmesh finish` (whole State in: one `kfinish` and
+    `kflight`), or `kmesh finish` alone (shards in: one of each a
+    shard), all inside `kmesh prun`."""
+    devices = ["cpu"] * 4
+    st = state.init(CFG, device="cpu")
+    if shards_in:
+        st = mesh_mod.shard_state(st, mesh_mod.make_mesh(devices=devices))
+    m = run.metrics_init(CFG.n_groups, device="cpu")
+    f = recorder.flight_init(CFG.n_groups, 16, device="cpu")
+    prev = trace.set_tracer(trace.Tracer(device_times=False))
+    try:
+        out, events = _profiled(
+            lambda: kmesh.prun_sharded(CFG, st, 10, devices, 0, m, f),
+            tmp_path)
+    finally:
+        trace.set_tracer(prev)
+    assert len(out) == 3
+    finish = (4 * _kfinish_tree("kmesh finish") if shards_in else
+              [("kmesh gather", "kmesh prun")]
+              + _kfinish_tree("kmesh finish"))
+    assert _tree(events) == sorted(
+        [("kmesh prun", "outer"), ("kmesh cut", "kmesh prun"),
+         ("kmesh kinit", "kmesh prun"), ("kmesh finish", "kmesh prun")]
+        + _kinit_tree(4) + finish)
+
+
+def test_tracer_without_device_times_calls_no_cuda(monkeypatch):
+    """With `torch.cuda`'s events, streams and synchronize made to
+    raise, a tracer without device times runs chunk and launch spans on
+    a card's name and whole CPU runs untouched, and keeps no device
+    time; a tracer with them trips the first call."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call")
+
+    for name in ("Event", "synchronize", "current_stream", "Stream"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    t = trace.Tracer(device_times=False)
+    prev = trace.set_tracer(t)
+    try:
+        with trace.chunk_span("cuda", 0, 200, "cuda:0") as args:
+            pass
+        with trace.launch_span("wire_pack cuda", "cuda:0", groups=8):
+            pass
+        st = state.init(CFG, device="cpu")
+        kernel.prun(CFG, st, 20)
+        kmesh.prun_sharded(CFG, st, 10, ["cpu"] * 4)
+    finally:
+        trace.set_tracer(prev)
+    assert args == {"engine": "cuda", "t0": 0, "n_ticks": 200}
+    assert not [e for e in t.events if "device_ms" in e.get("args", {})]
+    trace.set_tracer(trace.Tracer())
+    try:
+        with pytest.raises(AssertionError, match="a CUDA call"):
+            with trace.chunk_span("cuda", 0, 200, "cuda:0"):
+                pass
+    finally:
+        trace.set_tracer(prev)
