@@ -38,9 +38,11 @@
 //   >= k (at most 32); lane i steps node i. The tile's lanes meet only at
 //   tile barriers (`__syncwarp` over its mask) and warp collectives
 //   (ballot, reduce, shuffle) over that mask, so tiles never wait for each
-//   other. Per tick: (1) the tile copies the rings into the next buffer and
-//   clears the next mailbox's presence rows (every row on the last tick of
-//   the launch), while each lane draws its node's aliveness,
+//   other. Per tick: (1) each lane copies into the next buffer the slots
+//   of its node's ring that the last tick wrote (the whole ring on a
+//   launch's first tick; elsewhere the two buffers' rings already agree)
+//   and the tile clears the next mailbox's presence rows (every row on the
+//   last tick of the launch), while each lane draws its node's aliveness,
 //   partition side and nemesis bits (exchanged by ballot), restarts its own
 //   node on the rising edge and draws its own delivery filter (the K drop
 //   hashes of the links into it); (2) each lane steps its node: handlers in
@@ -72,8 +74,7 @@
 // group holds, at a stride `gs` (twice an odd number, so neighbouring
 // groups fall in other banks): its static rows without the flight rows,
 // buffer 0 and buffer 1 of the double-buffered rows (each from an even
-// word, so the rings copy as 8-byte words), and the nemesis participation
-// bits.
+// word), and the nemesis participation bits.
 //
 // In place. A null `wire_in` runs the ticks on `out` as it stands: the
 // wrapper passes it for the output written over the input (`alias_wire`) and
@@ -249,7 +250,7 @@ struct Args {
   // rows less the flight rows), lanes per group, groups per block, the
   // group's stride in shared memory, its participation words, and where
   // its double-buffered rows start and how far apart its two buffers
-  // lie (both even, so the rings copy as 8-byte words).
+  // lie (both even).
   int n_static, W, ng, gs, part_words, db0, db_pitch;
 };
 
@@ -383,6 +384,7 @@ struct Node : std::conditional_t<READS, ReadLanes, NoReadLanes>,
   int* match;
   int* lt;   // own ring, terms
   int* lp;   // own ring, payloads
+  int wlo, whi;   // lowest and highest index written to the ring this tick
   bool live;   // alive this tick: a dead node writes no row but its outbox
 };
 
@@ -548,6 +550,38 @@ __device__ __forceinline__ int term_at(const Node& n, int idx, int L) {
   return idx == n.snap_index ? n.snap_term : n.lt[slot_of(idx, L)];
 }
 
+// The one writer of a node's ring: entry idx takes `term`, and `payload`
+// too unless `term_only`. It widens [wlo, whi], the indices this tick
+// wrote, which are all that the next tick's `ring_sync` copies.
+__device__ __forceinline__ void put_entry(Node& n, int idx, int L, int term,
+                                          int payload, bool term_only) {
+  const int sl = slot_of(idx, L);
+  n.lt[sl] = term;
+  if (!term_only) n.lp[sl] = payload;
+  n.wlo = min(n.wlo, idx);
+  n.whi = max(n.whi, idx);
+}
+
+// The ring slots of the indices [lo, hi]: at most L, none when hi < lo.
+__device__ __forceinline__ int span_slots(int lo, int hi, int L) {
+  return hi < lo ? 0 : min(hi - lo + 1, L);
+}
+
+// Node i's ring in the next buffer brought up to date with the current
+// buffer: only the slots of the indices [lo, hi] that the last tick wrote
+// (into what is now the current buffer) differ between the two, so
+// copying them leaves what a copy of the whole ring would. A launch's
+// first tick passes L indices: its next buffer has not been loaded.
+__device__ __forceinline__ void ring_sync(const Group& gr, int i, int lo,
+                                          int hi) {
+  const int L = gr.a.L, n = span_slots(lo, hi, L);
+  for (int j = 0, sl = slot_of(lo, L); j < n; ++j) {
+    gr.x(F_LOG_TERM, i * L + sl) = gr.c(F_LOG_TERM, i * L + sl);
+    gr.x(F_LOG_PAYLOAD, i * L + sl) = gr.c(F_LOG_PAYLOAD, i * L + sl);
+    sl = sl + 1 == L ? 0 : sl + 1;
+  }
+}
+
 // One counted deadline draw, made at tick t.
 template <class NM>
 __device__ __forceinline__ void reset_timer(const Group& gr, Node& n, int i,
@@ -641,7 +675,8 @@ __device__ __forceinline__ void become_leader(const Args& a, Node& n, int i) {
     n.match[p] = 0;
   }
   // Takeover re-proposal: the top uncommitted entry takes the new term.
-  if (n.last_index > n.commit) n.lt[slot_of(n.last_index, a.L)] = n.term;
+  if (n.last_index > n.commit)
+    put_entry(n, n.last_index, a.L, n.term, 0, true);
 }
 
 template <class NM>
@@ -720,9 +755,11 @@ __device__ __forceinline__ void start_election(const Group& gr, Node& n,
 // ------------------------------------------------------------ one node
 
 // Node i's step (lane i). `keep`: the delivery filter for dst = i, by src.
+// [lo, hi]: the indices it wrote to its ring (hi < lo: none).
 template <class N = Node, class NM = Nem>
 __device__ __forceinline__ void node_step(
-    const Group& gr, int i, unsigned keep, bool alive, int t, const NM& nm) {
+    const Group& gr, int i, unsigned keep, bool alive, int t, const NM& nm,
+    int& lo, int& hi) {
   const Args& a = gr.a;
   const int K = a.K, L = a.L;
   const uint32_t gid = gr.gid, tu = static_cast<uint32_t>(t);
@@ -754,6 +791,8 @@ __device__ __forceinline__ void node_step(
   n.le = gr.s(F_LEADER_ELAPSED, i);
   n.lt = &gr.x(F_LOG_TERM, i * L);   // this tick's copy, in the next buffer
   n.lp = &gr.x(F_LOG_PAYLOAD, i * L);
+  n.wlo = INT_MAX_;
+  n.whi = INT_MIN_;
   if constexpr (READS) {
     n.ack = &gr.s(F_ACK_TIME, i * K);
     n.sri = gr.s(F_SCHED_READ_INDEX, i);
@@ -842,8 +881,7 @@ __device__ __forceinline__ void node_step(
           bool need_append = !in_log || diverge;
           bool room = idx - n.snap_index <= L && !full;
           bool do_append = need_append && room;
-          if (same_p || do_append) n.lt[sl] = et;
-          if (do_append) n.lp[sl] = ep;
+          if (same_p || do_append) put_entry(n, idx, L, et, ep, same_p);
           if (do_append) last = idx;
           else if (diverge && !room) last = idx - 1;
           if (same_t || same_p || do_append) hi = idx;
@@ -1051,6 +1089,8 @@ __device__ __forceinline__ void node_step(
     for_presence([&](int m) {
       for (int p = 0; p < K; ++p) OB(m, p) = 0;
     });
+    lo = n.wlo;
+    hi = n.whi;
     return;
   }
 
@@ -1083,9 +1123,7 @@ __device__ __forceinline__ void node_step(
       if (__popc(static_cast<unsigned>(new_mask)) >= a.min_voters &&
           cfg_index <= n.commit && term_at(n, n.commit, L) == n.term &&
           idx - n.snap_index <= L && !full) {
-        int sl = slot_of(idx, L);
-        n.lt[sl] = n.term;
-        n.lp[sl] = CONFIG_FLAG | new_mask;
+        put_entry(n, idx, L, n.term, CONFIG_FLAG | new_mask, false);
         n.last_index = idx;
       }
     }
@@ -1104,12 +1142,12 @@ __device__ __forceinline__ void node_step(
           break;
         }
         const int done = gr.s(F_CLIENTS_DONE, q);
-        int sl = slot_of(idx, L);
-        n.lt[sl] = n.term;
-        n.lp[sl] = SESSION_FLAG | (q << SID_SHIFT) | (done << SEQ_SHIFT) |
-                   static_cast<int>(
-                       hash_u32(a.seed, TAG_CLIENT_VAL, gid, q, done) &
-                       VAL_MASK);
+        put_entry(n, idx, L, n.term,
+                  SESSION_FLAG | (q << SID_SHIFT) | (done << SEQ_SHIFT) |
+                      static_cast<int>(
+                          hash_u32(a.seed, TAG_CLIENT_VAL, gid, q, done) &
+                          VAL_MASK),
+                  false);
         n.last_index = idx;
       }
     }
@@ -1118,10 +1156,10 @@ __device__ __forceinline__ void node_step(
     for (int c = 0; c < a.cmds; ++c) {
       int idx = n.last_index + 1;
       if (idx - n.snap_index > L) break;   // window full
-      int sl = slot_of(idx, L);
-      n.lt[sl] = n.term;
-      n.lp[sl] = static_cast<int>(
-          hash_u32(a.seed, TAG_CMD, gid, n.term, idx) & 0x3FFFFFFFu);
+      put_entry(n, idx, L, n.term,
+                static_cast<int>(
+                    hash_u32(a.seed, TAG_CMD, gid, n.term, idx) & 0x3FFFFFFFu),
+                false);
       n.last_index = idx;
     }
   }
@@ -1215,6 +1253,8 @@ __device__ __forceinline__ void node_step(
     gr.s(F_SCHED_READ_REG, i) = n.srr;
     gr.s(F_READS_DONE, i) = n.rdone;
   }
+  lo = n.wlo;
+  hi = n.whi;
 }
 #undef OB
 
@@ -1385,6 +1425,9 @@ __device__ __forceinline__ void run_group(
     tile_sync(tl);
   }
   const int ring_words = 2 * K * a.L;   // the rings lead the region
+  // The indices this lane's node wrote to its ring last tick; before the
+  // first tick, L of them, so that tick copies the whole ring.
+  int wlo = 1, whi = a.L;
 
   for (int tt = 0; tt < a.n_ticks; ++tt) {
     const int tick = a.t0 + tt;
@@ -1396,9 +1439,7 @@ __device__ __forceinline__ void run_group(
     // slot's fields only when its presence bit is set, so before the
     // last tick only the presence rows are cleared; the last tick
     // clears every row, as the wire holds them.
-    for (int w = i; w < ring_words / 2; w += tl.w)
-      reinterpret_cast<int2*>(gr.nxt)[w] =
-          reinterpret_cast<const int2*>(gr.cur)[w];
+    if (node && whi >= wlo) ring_sync(gr, i, wlo, whi);   // wrote any?
     if (tt + 1 == a.n_ticks) {
       for (int w = ring_words + i; w < a.db_words; w += tl.w) gr.nxt[w] = 0;
     } else {
@@ -1447,7 +1488,8 @@ __device__ __forceinline__ void run_group(
       keep &= ~blk;
     }
     tile_sync(tl);   // the next buffer is ready
-    if (node) node_step<Node, NM>(gr, i, keep, (alive >> i) & 1u, tick, nm);
+    if (node)
+      node_step<Node, NM>(gr, i, keep, (alive >> i) & 1u, tick, nm, wlo, whi);
     tile_sync(tl);   // every node has stepped
     alive_prev = alive;
     if constexpr (CLIENTS) {

@@ -8,7 +8,8 @@ scheduled-client universes (retrying sessions, the admission cap, with
 PreVote and membership change), on the flight ring, on nemesis programs
 (the gray mix, the storage-pressure mix under admission-capped clients,
 one clause of every kind at k=3 and k=5, a 24-clause program), on shapes
-past the old per-thread bounds (k=9, log_cap=128), and on states with
+past the old per-thread bounds (k=9, log_cap=128), on a 6-slot ring that
+faults wrap every few ticks, on runs of one-tick launches, and on states with
 planted safety violations (where the kernel's
 own safety fold must clear exactly the planted groups). Divergence
 triage with the kernel as an engine: `bisect_divergence` of the plain
@@ -141,20 +142,33 @@ def assert_same(cfg, g, leaves, plain):
     # shapes past the kernel's old per-thread bounds (k <= 8, L <= 64)
     dict(n_groups=1000, k=9, **CONFIG4),
     dict(n_groups=1000, log_cap=128, compact_every=64, **CONFIG4),
+    # catch-up walks, leader changes and truncations that wrap a short
+    # ring every few ticks: the slots a tick wrote span the wrap
+    dict(n_groups=1000, k=5, log_cap=6, compact_every=2, crash_prob=0.3,
+         crash_epoch=16, partition_prob=0.2, partition_epoch=16,
+         drop_prob=0.05),
+    # nine 1-tick launches, then one of 31 ticks: each launch's first tick
+    # fills its next buffer's rings whole, and the stored buffer's parity
+    # changes
+    dict(n_groups=1000, chunks=tuple((t, 1) for t in range(9)) + ((9, 31),),
+         **CONFIG4),
 ], ids=["fault_mix", "config4", "election_rounds", "reads", "feature_mix",
         "transfer_reconfig", "prevote", "reconfig", "reads_reconfig",
         "prevote_reconfig", "clients", "clients_cap", "bench_clients",
-        "clients_prevote_reconfig", "k9", "L128"])
+        "clients_prevote_reconfig", "k9", "L128", "ring_wrap",
+        "one_tick_launches"])
 def test_kernel_matches_plain_on_card(cuda, kw):
+    kw = dict(kw)
+    chunks = kw.pop("chunks", ((0, 33), (33, 40)))
     cfg = RaftConfig(**kw)
     leaves, g = kernel.kinit(cfg, state.init(cfg, device=cuda))
     plain = leaves
     before = kernel.kstep.launches
-    for at, n in ((0, 33), (33, 40)):
+    for at, n in chunks:
         leaves = kernel.kstep(cfg, leaves, at, n)
         plain = kernel.kstep_plain(cfg, plain, at, n)
     torch.cuda.synchronize()
-    assert kernel.kstep.launches == before + 2
+    assert kernel.kstep.launches == before + len(chunks)
     assert_same(cfg, g, leaves, plain)
     nodes = kernel.kfinish(cfg, leaves, g)[0].nodes
     if cfg.reconfig_u32:

@@ -1,7 +1,8 @@
 """The port's probe scripts on the CPU: scripts/torch_perf_probe.py's
 variants patch names of `sim.step` that exist and restore them (and the
 restored tick is the unpatched one), and the kernel probe's anchors are
-in fused_chunk.cu; scripts/torch_layout_probe.py --bytes-only equals the
+in fused_chunk.cu, and it launches an old kernel by the form of its
+launcher; scripts/torch_layout_probe.py --bytes-only equals the
 JAX package's `bytes_per_group_report` leaf for leaf but for the three
 u32 leaves the port holds as int64; scripts/torch_check_metric_parity.py
 exits 0, and 1 on an injected drift. The reference's report runs its
@@ -89,11 +90,52 @@ def test_restored_tick_is_the_unpatched_one():
 
 
 def test_kernel_probe_anchors_are_in_the_source():
+    from raft_tpu_torch.sim import kernel
     ab = importlib.import_module("torch_kernel_ab")
     src = ab.instrumented_source()
     assert src.count("clock64()") == 4 and "fc_read_cycles" in src
+    # the ring words copied per tile-tick, beside the cycles, all summed
+    # in registers and added once a launch
+    assert ab.syncs_by_span(kernel.SOURCE.read_text())
+    assert src.count("span_slots(wlo, whi, a.L)") == 1
+    assert src.count("atomicAdd(&fc_cycles[4], fc_sum[4])") == 1
+    assert "fc_cycles[5]" in src and "z[5]" in src
+    assert src.count("atomicAdd(") == kernel.SOURCE.read_text().count(
+        "atomicAdd(") + 2
     if not torch.cuda.is_available():
         assert probe.main([]) == 2   # the timings need the card
+
+
+# The launcher of a fused_chunk.cu from before the double-buffered rows
+# moved into shared memory: it took a scratch tensor for them.
+SCRATCH_LAUNCHER = """
+extern "C" int fused_chunk_launch(const void* wire_in, void* wire_out,
+                                  void* scratch, void* acc,
+                                  const int* offsets, int n_offsets,
+                                  const long long* params, int n_params,
+                                  const unsigned* nem, int n_nem,
+                                  void* stream) {
+"""
+
+
+@pytest.mark.parametrize("form", ["current", "scratch"])
+def test_kernel_ab_reads_the_old_launcher_form(form):
+    """scripts/torch_kernel_ab.py launches OLD.cu by the form its text
+    shows: with the scratch tensor (`old_step`) or as `kernel.kstep`
+    launches the current source (`current_form_step`)."""
+    from raft_tpu_torch.sim import kernel
+    ab = importlib.import_module("torch_kernel_ab")
+    text = kernel.SOURCE.read_text()
+    if form == "scratch":
+        head = text.index('extern "C" int fused_chunk_launch(')
+        text = text[:head] + SCRATCH_LAUNCHER.lstrip() + \
+            text[text.index("{", head) + 2:]
+    assert ab.launcher_takes_scratch(text) == (form == "scratch")
+    lib = object()
+    step = ab.old_stepper(lib, text)
+    assert step.args == (lib,)
+    assert step.func is (ab.old_step if form == "scratch"
+                         else ab.current_form_step)
 
 
 ROW = re.compile(r"^\s+(\d+) B  (\S+)\s+([a-z0-9]+)(\[.*\])$")

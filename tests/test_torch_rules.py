@@ -1,13 +1,15 @@
 """Structural rules of the port: no module of raft_tpu_torch/ and not
 chip_smoke.py imports jax or the JAX package (an AST scan of every
 import), entry points default to the CUDA device (a mesh to every
-visible card, never the CPU in its place), and the kernel source is the
-one the wrapper builds for sm_90a."""
+visible card, never the CPU in its place), the kernel source is the
+one the wrapper builds for sm_90a, and its ring writes go through the
+one helper that records them."""
 
 from __future__ import annotations
 
 import ast
 import inspect
+import re
 from pathlib import Path
 
 import pytest
@@ -204,3 +206,102 @@ def test_nemesis_table_follows_the_kernel():
     # the table's 6 clauses, a participation word and its padding
     assert kernel.shared_bytes(cfg) == \
         kernel.shared_bytes(RaftConfig()) + 8 * 4 * 6 + 4 * 4
+
+
+def _body(text: str, name: str) -> tuple:
+    """(start, end) of the body of the kernel function `name`."""
+    head = re.search(rf"\b(?:void|int|bool) {name}\(", text)
+    assert head, name
+    start = text.index("{", text.index(")", head.end()))
+    depth = 0
+    for at in range(start, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[at], 0)
+        if depth == 0:
+            return start, at
+    raise AssertionError(f"{name}: unbalanced braces")
+
+
+def _code_line(text: str, at: int) -> str:
+    """The code of the line holding offset `at`, without its comment."""
+    line = text[text.rindex("\n", 0, at) + 1:text.index("\n", at)]
+    return line.split("//", 1)[0].strip()
+
+
+RING_STORE = re.compile(r"\b\w+\.l[tp]\s*\[[^\]]*\]\s*=(?!=)")
+RING_ROW = re.compile(r"gr\.x\(F_LOG_(?:TERM|PAYLOAD),")
+NEXT_STORE = re.compile(r"gr\.nxt\)?\s*\[[^\]]*\]\s*=(?!=)|int2\*>\(gr\.nxt\)")
+NODE_RING = ("n.lt = &gr.x(F_LOG_TERM, i * L);",
+             "n.lp = &gr.x(F_LOG_PAYLOAD, i * L);")
+
+
+def ring_write_problems(text: str) -> list:
+    """Where fused_chunk.cu writes a node's ring other than through
+    `put_entry` (which records the index it wrote), or writes the next
+    buffer's ring rows other than by `ring_sync` and node_step's own ring
+    pointers: each breaks the copy of only the written slots."""
+    put, sync, step = (_body(text, f) for f in ("put_entry", "ring_sync",
+                                                "node_step"))
+    problems = []
+
+    def inside(at, span):
+        return span[0] <= at <= span[1]
+
+    for m in RING_STORE.finditer(text):
+        if not inside(m.start(), put):
+            problems.append(f"ring store outside put_entry: {m.group(0)}")
+    for m in re.finditer(r"\bn\.l[tp]\b(?!\s*\[)", text):
+        line = _code_line(text, m.start())
+        if line not in NODE_RING or not inside(m.start(), step):
+            problems.append(f"ring pointer used other than indexed: {line}")
+    for m in RING_ROW.finditer(text):
+        line = _code_line(text, m.start())
+        read = re.match(r"const int\* \w+ = &gr\.x\(", line) or \
+            re.match(r"int \w+ = gr\.c\(", line)
+        if not (read or inside(m.start(), sync) or
+                (line in NODE_RING and inside(m.start(), step))):
+            problems.append(f"second writer of the next rings: {line}")
+    for m in NEXT_STORE.finditer(text):
+        line = _code_line(text, m.start())
+        if not inside(m.start(), sync) and "= ring_words +" not in line:
+            problems.append(f"next buffer written over the rings: {line}")
+    if not RING_STORE.search(text[put[0]:put[1]]):
+        problems.append("put_entry stores no ring slot")
+    return problems
+
+
+SYNC_CALL = ("    if (node && whi >= wlo) ring_sync(gr, i, wlo, whi);"
+             "   // wrote any?\n")
+RING_MUTANTS = {
+    "as_built": None,
+    "bare_store": ("          if (same_p || do_append) put_entry(",
+                   "          n.lt[sl] = et;\n"
+                   "          if (same_p || do_append) put_entry("),
+    "second_writer": (SYNC_CALL, SYNC_CALL +
+                      "    if (node) gr.x(F_LOG_PAYLOAD, i * a.L) = 0;\n"),
+    "whole_copy": (SYNC_CALL,
+                   "    for (int w = i; w < ring_words / 2; w += tl.w)\n"
+                   "      reinterpret_cast<int2*>(gr.nxt)[w] =\n"
+                   "          reinterpret_cast<const int2*>(gr.cur)[w];\n"),
+    "pointer_alias": ("          if (same_p || do_append) put_entry(",
+                      "          int* t = n.lt;\n"
+                      "          if (same_p || do_append) put_entry("),
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(RING_MUTANTS))
+def test_ring_writes_go_through_one_helper(mutant):
+    """Each tick copies into the next buffer only the ring slots the last
+    tick wrote (`ring_sync`), which is the whole difference between the
+    two buffers only if every ring write goes through `put_entry`, and
+    nothing else writes the next buffer's rings. The CPU cannot run the
+    kernel, so the rule is read from its source; each mutant breaks it."""
+    text = kernel.SOURCE.read_text()
+    if RING_MUTANTS[mutant] is not None:
+        anchor, repl = RING_MUTANTS[mutant]
+        assert text.count(anchor) == 1, anchor
+        text = text.replace(anchor, repl)
+    problems = ring_write_problems(text)
+    if mutant == "as_built":
+        assert problems == []
+    else:
+        assert problems, mutant
