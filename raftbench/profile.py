@@ -9,6 +9,13 @@ The benchmark's own spans, `torch.profiler.record_function` ranges from
 name: every `__global__` function of the program's CUDA sources. The
 window is the universes' spans: what lies between two universes (the
 harness's sample gather) is not the program's, and is left out.
+
+With the program's tracer installed (`System.tracing()`), the program's
+own spans are ranges `raft_tpu_torch.<span>` in the same trace: they are
+kept apart from the benchmark's (`Timeline.program_spans`), with the
+host's launch calls (`Timeline.launches`), and read through
+`idle_in_spans` and `launches_in_spans`. No reader of the benchmark's
+spans or of the device sees them.
 """
 
 from __future__ import annotations
@@ -23,6 +30,12 @@ from pathlib import Path
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPAN_PREFIX = "raftbench."
 UNIVERSE = "raftbench.universe"
+# The program's spans' range prefix (its `obs.trace.RANGE_PREFIX`).
+PROGRAM_PREFIX = "raft_tpu_torch."
+HOST_CATS = ("cuda_runtime", "cuda_driver")
+# The host's calls that put work on a card's queue.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
 GLOBAL_RE = re.compile(r"__global__(.*?)\(", re.S)
 BOUNDS_RE = re.compile(r"__launch_bounds__\s*\([^)]*\)")
 
@@ -46,6 +59,9 @@ class Timeline:
     spans: list           # [(name, start, end)] of the benchmark's spans
     device_events: list   # [(name, device, start, end, port_kernel)]
     devices: list         # the card indices of the run
+    # [(name without PROGRAM_PREFIX, start, end)] of the program's spans
+    program_spans: list = dataclasses.field(default_factory=list)
+    launches: list = dataclasses.field(default_factory=list)  # start times
 
 
 def short_name(name: str) -> str:
@@ -59,7 +75,7 @@ def short_name(name: str) -> str:
 def read_chrome_trace(obj: dict, port_kernels: tuple,
                       devices: list) -> Timeline:
     words = [re.compile(rf"\b{re.escape(k)}\b") for k in port_kernels]
-    universes, spans, dev = [], [], []
+    universes, spans, dev, program, launches = [], [], [], [], []
     for ev in obj.get("traceEvents", []):
         if ev.get("ph") != "X" or "dur" not in ev:
             continue
@@ -71,6 +87,10 @@ def read_chrome_trace(obj: dict, port_kernels: tuple,
                 universes.append((t0, t1))
             else:
                 spans.append((name, t0, t1))
+        elif cat == "user_annotation" and name.startswith(PROGRAM_PREFIX):
+            program.append((name[len(PROGRAM_PREFIX):], t0, t1))
+        elif cat in HOST_CATS and name.startswith(LAUNCH_CALLS):
+            launches.append(t0)
         elif cat in DEVICE_CATS:
             d = ev.get("args", {}).get("device")
             if d is None:
@@ -80,7 +100,9 @@ def read_chrome_trace(obj: dict, port_kernels: tuple,
     universes.sort()
     spans.sort(key=lambda s: s[1])
     dev.sort(key=lambda e: e[2])
-    return Timeline(universes, spans, dev, list(devices))
+    program.sort(key=lambda s: s[1])
+    return Timeline(universes, spans, dev, list(devices), program,
+                    sorted(launches))
 
 
 def collect(prof, port_kernels: tuple, devices: list) -> Timeline | None:
@@ -93,6 +115,16 @@ def collect(prof, port_kernels: tuple, devices: list) -> Timeline | None:
         obj = json.loads(path.read_text())
     tl = read_chrome_trace(obj, port_kernels, devices)
     return tl if tl.universes else None
+
+
+def split(tl: Timeline | None, n: int) -> tuple:
+    """(`tl` over its first `n` universes, `tl` over the rest or None):
+    every reader looks only inside a timeline's universes."""
+    if tl is None:
+        return None, None
+    rest = tl.universes[n:]
+    return (dataclasses.replace(tl, universes=tl.universes[:n]),
+            dataclasses.replace(tl, universes=rest) if rest else None)
 
 
 # ------------------------------------------------------- interval algebra
@@ -200,3 +232,79 @@ def host_label(tl: Timeline, t: float) -> str:
     if best is not None:
         return best[0][len(SPAN_PREFIX):]
     return "universe"
+
+
+# ------------------------------------------------------ the program's spans
+
+
+def intersect(xs: list, ys: list) -> list:
+    """The intersection of two sorted disjoint interval lists."""
+    out, i, j = [], 0, 0
+    while i < len(xs) and j < len(ys):
+        a, b = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        if b > a:
+            out.append((a, b))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def _contains(outer, inner) -> bool:
+    return outer is not inner and outer[1] <= inner[1] \
+        and inner[2] <= outer[2] and (outer[1], outer[2]) != (inner[1],
+                                                              inner[2])
+
+
+def top_level(spans: list) -> list:
+    """The program spans no other program span contains."""
+    return [s for s in spans if not any(_contains(o, s) for o in spans)]
+
+
+def universe_program_spans(tl: Timeline, lo: float, hi: float) -> list:
+    """The program spans of the universe [lo, hi]: those whose middle
+    lies inside it."""
+    return [s for s in tl.program_spans if lo <= (s[1] + s[2]) / 2 <= hi]
+
+
+def host_in_spans(tl: Timeline, names, top: bool = True) -> list:
+    """For each profiled universe in which the host enters a program span
+    named in `names`: (the universe's (start, end), the union of those
+    spans as sorted disjoint intervals). With `top`, only the spans that
+    lie in no other program span count (`run.metrics_init` inside `prun`
+    is the boundary's, not the init's)."""
+    out = []
+    for lo, hi in tl.universes:
+        spans = universe_program_spans(tl, lo, hi)
+        if top:
+            spans = top_level(spans)
+        inside = union((a, b) for name, a, b in spans if name in names)
+        if inside:
+            out.append(((lo, hi), inside))
+    return out
+
+
+def idle_in_spans(tl: Timeline, names, devices=None,
+                  top: bool = True) -> list:
+    """For each profiled universe in which the host enters a program span
+    named in `names` (`host_in_spans`): the time (us) inside those spans
+    during which no operation ran on a card, averaged over `devices`
+    (default: the run's cards). A later configuration's reader of the
+    idle card under its own spans calls this with their names."""
+    devices = tl.devices if devices is None else list(devices)
+    on = {d: busy(tl, d) for d in devices}
+    out = []
+    for (lo, hi), inside in host_in_spans(tl, names, top):
+        off = [length(intersect(gaps(clip(on[d], lo, hi), lo, hi), inside))
+               for d in devices]
+        out.append(sum(off) / max(1, len(devices)))
+    return out
+
+
+def launches_in_spans(tl: Timeline, names, top: bool = True) -> list:
+    """For each profiled universe in which the host enters a program span
+    named in `names`: the host's launch calls (`LAUNCH_CALLS`) that start
+    inside those spans."""
+    return [sum(1 for t in tl.launches if any(a <= t <= b for a, b in inside))
+            for _, inside in host_in_spans(tl, names, top)]

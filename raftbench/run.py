@@ -12,9 +12,14 @@ a seed sweep runs), each from `state.init` to its Metrics and flight ring
 on the host, until the universes' walls add up to `--seconds`. The
 window is those walls: between two universes the harness gathers the
 sampled groups of the one that ended (`check.Samples`), off the clock.
-With `--trace 1` the window runs under `torch.profiler` and the result
-carries the per-layer metrics, `busy_s`, `window_s` and a `breakdown`,
-all read inside the universes' spans.
+With `--trace 1` two blocks of the window's universes run under one
+`torch.profiler` session (`Blocks`): the first bare, read for the kernel
+and the device (`Run.timeline`: `busy_s`, `window_s`, the `breakdown` and
+the readers of the device), the second with the program's tracer
+installed (`System.tracing()`), read for the program's own spans and the
+host's launch calls (`Run.program_timeline`). The tracer's ranges cost
+the host time, so no reading of the first block carries them. The result
+carries the per-layer metrics, all read inside the universes' spans.
 
 After the window the peak memory is read, the program's state freed, and
 a sample of the groups drawn from the seed is judged against the plain
@@ -45,7 +50,8 @@ from raftbench import check, metrics_util, roofline, spec  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "raft_tpu")
 PROFILE_SKIP = 1        # universes of the window before the profiler starts
-PROFILE_UNIVERSES = 40  # universes the profiler covers at most
+PROFILE_UNIVERSES = 40  # universes a profiled block covers at most
+PROFILE_BLOCKS = 2      # the bare block, then the block with the tracer
 
 
 @dataclasses.dataclass
@@ -58,6 +64,49 @@ class Run:
     group_ticks: int        # groups x ticks of the universes completed
     timeline: object = None  # profile.Timeline of a traced run
     roofline: dict | None = None   # least time of one universe's work
+    # profile.Timeline of the traced run's block with the program's tracer
+    program_timeline: object = None
+
+
+def block_of(u: int) -> int | None:
+    """The profiled block (0: bare, 1: with the program's tracer) that
+    universe `u` of a traced run's window falls in, or None."""
+    i = u - PROFILE_SKIP
+    if 0 <= i < PROFILE_BLOCKS * PROFILE_UNIVERSES:
+        return i // PROFILE_UNIVERSES
+    return None
+
+
+class Blocks:
+    """The profiled blocks of a traced run (`block_of`), started and ended
+    between two universes, off the clock: one `profiler()` session over
+    both, and in block 1 `system.tracing()` inside it. One session, read
+    once it has ended: on the card a second profiler session loses the
+    first one's device events. `session` is the profiler, once started."""
+
+    def __init__(self, system, profiler):
+        self.system, self.profiler = system, profiler
+        self.stack = contextlib.ExitStack()
+        self.block = None
+        self.session = None
+
+    def before(self, u: int) -> None:
+        """Start, move on or end the blocks before universe `u`."""
+        b = block_of(u)
+        if b == self.block:
+            return
+        if b is None:
+            self.close()
+        elif self.session is None:
+            self.session = self.stack.enter_context(self.profiler())
+        if b == 1:
+            self.stack.enter_context(self.system.tracing())
+        self.block = b
+
+    def close(self) -> None:
+        """End the blocks in progress, if any."""
+        self.stack.close()
+        self.block = None
 
 
 def forbidden_modules(modules=None) -> list:
@@ -140,7 +189,6 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     def no_span(_name):
         return contextlib.nullcontext()
 
-    prof = profiled = None
     if trace and on_card:
         # The first profiler session initialises CUPTI: in set-up, not in
         # the window.
@@ -159,17 +207,14 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
 
     walls, failed, error = [], 0, None
     rf = torch.profiler.record_function if trace else no_span
+    blocks = Blocks(sysm, lambda: torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]))
     measured = 0.0
     u = 0
     while not walls or measured < seconds:
-        if trace and on_card and u == PROFILE_SKIP and profiled is None:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            prof.__enter__()
-        if prof is not None and u == PROFILE_SKIP + PROFILE_UNIVERSES:
-            prof.__exit__(None, None, None)
-            profiled, prof = prof, None
+        if trace and on_card:
+            blocks.before(u)
         try:
             t0, t1 = universe(u, True, rf)
         except Exception as e:   # a universe that fails ends the window
@@ -178,21 +223,18 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         walls.append((t1 - t0) * 1e3)
         measured += t1 - t0
         u += 1
-    if prof is not None:
-        prof.__exit__(None, None, None)
-        profiled = prof
+    blocks.close()
     run = Run(cell=cell, setup_s=setup_s, window_s=measured,
               walls_ms=walls, group_ticks=len(walls) * cell.groups
               * cell.ticks)
     peak = sysm.memory_peak_bytes()
     kind = torch.cuda.get_device_name(sysm.device) if on_card else "cpu"
-    if profiled is not None:
-        run.timeline = profile.collect(
-            profiled, profile.port_kernel_names(sysm.CSRC)
-            if sysm.CSRC else (),
-            [d.index for d in sysm.mesh])
-        del profiled
-    del sysm
+    if blocks.session is not None:
+        run.timeline, run.program_timeline = profile.split(profile.collect(
+            blocks.session, profile.port_kernel_names(sysm.CSRC)
+            if sysm.CSRC else (), [d.index for d in sysm.mesh]),
+            PROFILE_UNIVERSES)
+    del blocks, sysm
     if on_card:
         torch.cuda.empty_cache()
     if error is not None:

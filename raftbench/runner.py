@@ -6,6 +6,7 @@ on it; neither this module nor the control imports the program."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -43,6 +44,11 @@ class Runner:
         if seed not in self.cfgs:
             self.cfgs[seed] = dataclasses.replace(self.cfg, seed=seed)
         self.cfg = self.cfgs[seed]
+
+    def tracing(self):
+        """A context inside which the system records its own spans as
+        profiler ranges: none here."""
+        return contextlib.nullcontext()
 
     def fetch(self, m, f) -> dict:
         """Copy the Metrics and the flight ring to the host (pinned

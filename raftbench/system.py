@@ -15,12 +15,13 @@ config here holds only the cell's semantic fields.
 
 from __future__ import annotations
 
+import contextlib
+
 from raft_tpu_torch.config import RaftConfig
-from raft_tpu_torch.obs import recorder
+from raft_tpu_torch.obs import recorder, trace
 from raft_tpu_torch.parallel import kmesh, mesh as mesh_mod
 from raft_tpu_torch.sim import kernel, run as run_mod, state as state_mod
 from raftbench.runner import Runner
-
 
 
 class System(Runner):
@@ -45,6 +46,18 @@ class System(Runner):
         the cell's flag set, on a card."""
         if self.device.type == "cuda":
             kernel.load(kernel.features(self.cfg))
+
+    @contextlib.contextmanager
+    def tracing(self):
+        """The program's tracer installed, without device times
+        (`obs.trace.Tracer(device_times=False)`: no CUDA event, no wait),
+        so that its spans are `raft_tpu_torch.<span>` profiler ranges;
+        the tracer installed before restored on exit."""
+        prev = trace.set_tracer(trace.Tracer(device_times=False))
+        try:
+            yield
+        finally:
+            trace.set_tracer(prev)
 
     def init(self, first_group: int):
         """A universe's start: (State, Metrics, Flight) of the cell's

@@ -32,11 +32,8 @@ def tiny(name: str, groups: int = 8, ticks: int = 40) -> spec.Cell:
 
 
 def tiny_sharded(groups: int = 4, ticks: int = 40) -> spec.Cell:
-    """raft5.steady's universe sharded over four devices: no cell of the
-    benchmark is sharded yet, and the harness drives one all the same."""
-    c = spec.cell("raft5.steady")
-    return dataclasses.replace(c, name="raft5.steady.x4", chips=4,
-                               groups=4 * groups, ticks=ticks)
+    """The sharded cell, raft5.steady.x4, at `groups` a device."""
+    return tiny("raft5.steady.x4", groups, ticks)
 
 
 def _run(cell, seed, system_cls, **kw):
