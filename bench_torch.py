@@ -460,7 +460,7 @@ def _timed_chunks(cfg, n_groups: int, ticks: int, counter_fn,
                                       phase="timed"):
                 st, m, f = run_recorded(cfg, st, chunk, tick_at, m, f)
                 tick_at += chunk
-            obs_trace.heartbeat(label, tick_at, m, f)
+            obs_trace.heartbeat(label, tick_at, m, f, cfg, st)
         delta = counter_fn(st, m) - base   # the fetch closes the timer
     elapsed = time.perf_counter() - start
     return (delta / elapsed, delta, elapsed, n_chunks * chunk, warmup_s,
@@ -482,7 +482,7 @@ def _plain_full_run(cfg, n_groups: int, ticks: int, label: str,
             with obs_trace.chunk_span("plain", tick_at, n, _DEVICE,
                                       phase="timed"):
                 st, m, f = run_recorded(cfg, st, n, tick_at, m, f)
-            obs_trace.heartbeat(label, tick_at + n, m, f)
+            obs_trace.heartbeat(label, tick_at + n, m, f, cfg, st)
         counter_fn(st, m)   # the fetch closes the timer
     elapsed = time.perf_counter() - start
     log(f"  [plain] {label} {n_groups} groups x {ticks} ticks in "

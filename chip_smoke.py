@@ -401,13 +401,6 @@ def planted_fold(kernel, run, state, plant, cfg, g, dev):
     return planted
 
 
-def membership_changed(cfg, st) -> bool:
-    from raft_tpu_torch.config import CONFIG_FLAG
-    n = st.nodes
-    return bool((n.snap_voters != cfg.full_mask).any()
-                or ((n.log_payload & CONFIG_FLAG) != 0).any())
-
-
 def finished(kernel, cfg, leaves, g):
     """(State, Metrics[, Flight]) of a wire pair."""
     out = kernel.kfinish(cfg, leaves, g)
@@ -1649,6 +1642,7 @@ def main(argv=None) -> int:
     from raft_tpu_torch.clients import workload
     from raft_tpu_torch.obs import recorder, roofline, trace
     from raft_tpu_torch.sim import kernel, run, state
+    from raft_tpu_torch.sim.run import membership_changed
     from raft_tpu_torch.verify import plant
 
     dev = torch.device("cuda")
@@ -1835,11 +1829,11 @@ def main(argv=None) -> int:
     hist = m.hist.cpu().numpy()
     reads = kernel.kreads(cfg, main["feature-mix"][0][-1], g)
     top_term = int(st1.nodes.term.max())
-    if not membership_changed(cfg, st1) or reads <= 0 or top_term <= 2:
+    changed = bool(membership_changed(cfg, st1).any())
+    if not changed or reads <= 0 or top_term <= 2:
         raise AssertionError(
-            f"feature mix: membership changed "
-            f"{membership_changed(cfg, st1)}, reads {reads}, top term "
-            f"{top_term}: a feature never fired")
+            f"feature mix: membership changed {changed}, reads {reads}, "
+            f"top term {top_term}: a feature never fired")
     print(f"[6] feature mix {g} groups, {N_TICKS} ticks: chunk ms "
           f"{[round(c, 2) for c in main['feature-mix'][1]]}; "
           f"{run.total_rounds(m) / secs:.1f} rounds/s, elections "

@@ -312,7 +312,10 @@ class Heartbeat:
     `beat(label, tick, metrics, flight)` after a launch of the plain
     path, `beat_wire(label, tick, cfg, leaves, g)` after a kernel launch;
     one record is appended every `every` calls of a label (and always on
-    its first). Signals:
+    its first). A universe with scheduled reads adds `reads_done_total`,
+    one with membership change `membership_changed_groups`
+    (`run.feature_counts`; `beat` needs the config and State for them).
+    Signals:
 
     - `election_storm` (with a flight ring): more completed elections in
       the ring's ticks than half the fleet;
@@ -340,9 +343,10 @@ class Heartbeat:
             fh.write(json.dumps(rec, sort_keys=True) + "\n")
         return rec
 
-    def beat(self, label: str, tick_at: int, metrics, flight=None) -> (
-            dict | None):
-        """Maybe append one record from (Metrics, Flight); returns it, or
+    def beat(self, label: str, tick_at: int, metrics, flight=None,
+             cfg=None, state=None) -> dict | None:
+        """Maybe append one record from (Metrics, Flight), and with the
+        universe's `cfg` and `state` its feature counts; returns it, or
         None when this call is not due."""
         if not self._due(label):
             return None
@@ -375,6 +379,10 @@ class Heartbeat:
                 ring_msgs=sum(r["msgs"] for r in rows),
                 election_storm=ring_elections > leaderless.shape[0] // 2,
                 leaderless_stall=rec["max_leaderless_streak"] > RING)
+        if cfg is not None and state is not None and _features_on(cfg):
+            from raft_tpu_torch.sim.run import feature_counts
+            counts = feature_counts(cfg, state)
+            rec.update({k: counts[k] for k in _features_on(cfg)})
         return self._write(rec)
 
     def beat_wire(self, label: str, tick_at: int, cfg, leaves,
@@ -402,7 +410,19 @@ class Heartbeat:
         if cfg.clients_u32:
             rec["client_acked_total"] = kernel.kacked(cfg, leaves, g)
             rec["client_retries_total"] = kernel.kretries(cfg, leaves, g)
+        on = _features_on(cfg)
+        if "reads_done_total" in on:
+            rec["reads_done_total"] = kernel.kreads(cfg, leaves, g)
+        if "membership_changed_groups" in on:
+            rec["membership_changed_groups"] = kernel.kmembership_changed(
+                cfg, leaves, g)
         return self._write(rec)
+
+
+def _features_on(cfg) -> tuple:
+    """The feature counts a heartbeat of `cfg`'s universe carries."""
+    return (("reads_done_total",) * (cfg.read_every != 0)
+            + ("membership_changed_groups",) * (cfg.reconfig_u32 != 0))
 
 
 # The process heartbeat, as the tracer.
@@ -415,7 +435,8 @@ def set_heartbeat(hb: Heartbeat | None) -> Heartbeat | None:
     return prev
 
 
-def heartbeat(label: str, tick_at: int, metrics, flight=None):
+def heartbeat(label: str, tick_at: int, metrics, flight=None, cfg=None,
+              state=None):
     """`Heartbeat.beat` on the installed heartbeat (no-op without one). A
     failed write is reported and the run goes on."""
     hb = _HEARTBEAT
@@ -423,7 +444,7 @@ def heartbeat(label: str, tick_at: int, metrics, flight=None):
         return None
     try:
         with _beat_span(label):
-            return hb.beat(label, tick_at, metrics, flight)
+            return hb.beat(label, tick_at, metrics, flight, cfg, state)
     except OSError as e:
         print(f"[heartbeat] write failed ({e}); continuing",
               file=sys.stderr, flush=True)

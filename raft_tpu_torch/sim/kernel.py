@@ -99,7 +99,7 @@ import torch
 
 from raft_tpu_torch.clients.state import (ADMISSION_LEAVES, CLIENT_LEAVES,
                                           ClientState, active_client_leaves)
-from raft_tpu_torch.config import NARROW_FIELDS, RaftConfig
+from raft_tpu_torch.config import CONFIG_FLAG, NARROW_FIELDS, RaftConfig
 from raft_tpu_torch.obs import recorder
 from raft_tpu_torch.obs import trace
 from raft_tpu_torch.obs.recorder import FLIGHT_LEAVES, Flight
@@ -1142,6 +1142,16 @@ def kreads(cfg: RaftConfig, leaves, g: int) -> int:
     return _lane_sum(cfg, leaves, g, "reads_done")
 
 
+def kmembership_changed(cfg: RaftConfig, leaves, g: int) -> int:
+    """Groups whose voter set changed (`run.membership_changed`: a
+    snapshot's voters other than all k, or a membership-change entry in
+    some node's window), straight from the wire."""
+    voters = klane(cfg, leaves, g, "snap_voters") != cfg.full_mask
+    config = (klane(cfg, leaves, g, "log_payload") & CONFIG_FLAG) != 0
+    # sync-ok: a host readout of the wire, after the launches
+    return int((voters.any(dim=0) | config.any(dim=0)).sum())  # sync-ok
+
+
 def kacked(cfg: RaftConfig, leaves, g: int) -> int:
     """Client-visible ops acked exactly once (`run.total_client_ops`),
     straight from the wire."""
@@ -1474,7 +1484,8 @@ def krun(cfg: RaftConfig, leaves, t0: int, n_ticks: int,
     tick `t0` in `kstep` launches of `chunk_ticks` ticks (default: one
     launch; each through the stream table, `sim/streams.py`), each
     inside an `obs.trace.chunk_span` of `engine` (default: "cuda" on a
-    card, else "plain"; `span_args` added to its args) and,
+    card, else "plain"; `span_args` added to its args, and on "cuda" the
+    kernel build's flag name as `build`) and,
     with a `label`, followed by an `obs.trace.heartbeat_wire` at the
     launch's last tick, the host's time between them traced as gaps
     (`obs.trace.covered`). All are no-ops unless a tracer or heartbeat
@@ -1482,6 +1493,8 @@ def krun(cfg: RaftConfig, leaves, t0: int, n_ticks: int,
     the input pair written over)."""
     if engine is None:
         engine = "cuda" if leaves[0].device.type == "cuda" else "plain"
+    if engine == "cuda" and trace.get_tracer() is not None:
+        span_args = dict(span_args, build=flag_name(features(cfg)))
     chunk = chunk_ticks or n_ticks
     at, end = int(t0), int(t0) + int(n_ticks)
     with trace.covered(label or engine):

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.config import RaftConfig
+from raft_tpu_torch.config import CONFIG_FLAG, RaftConfig
 from raft_tpu_torch.core.node import LEADER
 from raft_tpu_torch.obs import trace
 from raft_tpu_torch.sim import check
@@ -173,6 +173,31 @@ def total_client_retries(metrics: Metrics) -> int:
     """Re-submissions across groups (int64): each a potential duplicate
     log entry the exactly-once fold skips."""
     return int(metrics.client_retries.to(torch.int64).sum())
+
+
+def membership_changed(cfg: RaftConfig, st: State) -> torch.Tensor:
+    """bool[G]: the groups whose voter set changed, a snapshot's voters
+    other than all k or a membership-change entry (`CONFIG_FLAG`) in some
+    node's log window."""
+    n = widen_state(cfg, st).nodes
+    return ((n.snap_voters != cfg.full_mask).any(dim=1)
+            | ((n.log_payload & CONFIG_FLAG) != 0).flatten(1).any(dim=1))
+
+
+def feature_counts(cfg: RaftConfig, st: State) -> dict:
+    """What the protocol features did in a universe, read on the host
+    from its State: `reads_done_total` (completed linearizable reads,
+    the sum of the per-node `reads_done` counters, as `kernel.kreads`),
+    `membership_changed_groups` (`membership_changed`) and `top_term`.
+    Leader transfers leave no trace in State (a TimeoutNow is a mailbox
+    slot for one tick, the election it starts an election like any
+    other), so they are not counted. Reads back to the host: call it off
+    the timed path."""
+    n = widen_state(cfg, st).nodes
+    return {"reads_done_total": int(n.reads_done.to(torch.int64).sum()),
+            "membership_changed_groups":
+                int(membership_changed(cfg, st).sum()),
+            "top_term": int(n.term.max()) if n.term.numel() else 0}
 
 
 def latency_quantile(hist, q: float) -> int:

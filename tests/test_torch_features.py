@@ -42,6 +42,18 @@ UNIVERSES = {
              reconfig_prob=0.8, reconfig_epoch=40, crash_prob=0.15,
              crash_epoch=64), 80,
         ("transfer", "membership", "term")),
+    # raftbench's etcd5.ops-jepsen protocol fields (heartbeat every tick,
+    # election 10/10, PreVote, a read every tick) with its transfer,
+    # reconfig and fault rates; every epoch shortened from 64 to 16 ticks
+    # so that each feature fires inside 64 ticks
+    "etcd5_ops_jepsen": (
+        dict(n_groups=6, k=5, seed=71, heartbeat_every=1, election_min=10,
+             election_range=10, log_cap=32, max_entries_per_msg=4,
+             compact_every=8, prevote=True, cmds_per_tick=1, read_every=1,
+             transfer_prob=0.2, transfer_epoch=16, reconfig_prob=0.2,
+             reconfig_epoch=16, crash_prob=0.3, crash_epoch=16,
+             partition_prob=0.2, partition_epoch=16, drop_prob=0.02), 64,
+        ("prevote", "transfer", "membership", "reads", "term")),
 }
 
 
